@@ -132,6 +132,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp,              # q, k, v, out
         ci, ci, ci, ci, ci, ci,      # B, Sq, Skv, Hq, Hkv, D
         ci, ci, ci, cf, vp]          # causal, q_offset, is_bf16, scale, stream
+    lib.repro_wkv6_chunk.restype = ci
+    lib.repro_wkv6_chunk.argtypes = [
+        vp, vp, vp, vp, vp, vp,      # r, k, v, w, u, s0
+        vp, vp,                      # y, s_out
+        ci, ci, ci, ci, ci, ci,      # B, S, H, dk, dv, chunk
+        ci, vp]                      # is_bf16, stream
+    cl = ctypes.c_longlong
+    lib.repro_ssd_chunk.restype = ci
+    lib.repro_ssd_chunk.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,  # x, dt, A, B, C, D, h0
+        vp, vp,                      # y, h_out
+        ci, ci, ci, ci, ci, ci,      # B, S, H, P, N, chunk
+        cl, cl, cl, cl, cl, cl,      # strides (batch, position, head) of x, dt
+        cl, cl, cl, cl, cl, cl,      # ... and of B, C
+        ci, vp]                      # is_bf16, stream
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_cuda_error_string.argtypes = [ci]
 

@@ -34,7 +34,12 @@
 //   * values: one row per load instruction, each lane holding D/32
 //     contiguous elements of the output; the lane that owns a position's
 //     probability broadcasts it with one shuffle. VR rows are loaded before
-//     they are used, to cover memory latency;
+//     they are used, to cover memory latency. Where 32 does not divide D
+//     (D = 80, zamba2's shared attention) the row is padded to 96 and
+//     masked: a lane holds columns lane, lane + 32 and lane + 64, loaded as
+//     scalars (coalesced across the warp), the columns past D clamped to
+//     D - 1 on load and dropped at the merge, so nothing branches there
+//     either;
 //   * no branch on data inside the tile loop: a position past the length is
 //     clamped to the last live row and masked. (Per-row guards make the
 //     compiler emit the loads one at a time, each waiting for the last,
@@ -79,17 +84,47 @@ template <> struct Chunk<__nv_bfloat16> {
   }
 };
 
+// The largest divisor of n up to 8: how many of a K row's 16-byte loads are
+// in flight at once (a divisor, so the unrolled loop covers the row).
+__host__ __device__ constexpr int loads_in_flight(int n) {
+  for (int c = 8; c > 1; --c)
+    if (n % c == 0) return c;
+  return 1;
+}
+
+// One V row as a lane holds it: E = ceil(D/32) elements, contiguous (one
+// vector load) when 32 divides D, else columns lane + 32 e clamped to D - 1.
+template <typename T, int D> struct VRow {
+  static constexpr int E = (D + 31) / 32;
+  static constexpr bool CONTIG = D % 32 == 0;
+  T v[E];
+  __device__ __forceinline__ void load(const T* row, int lane) {
+    if constexpr (CONTIG) {
+      const Vec<T, E> x = *reinterpret_cast<const Vec<T, E>*>(row + lane * E);
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = x.v[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = row[min(lane + 32 * e, D - 1)];
+    }
+  }
+  // the output column of element e of this lane (>= D: padding)
+  static __device__ __forceinline__ int col(int lane, int e) {
+    return CONTIG ? lane * E + e : lane + 32 * e;
+  }
+};
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NW * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ lens,
                         T* __restrict__ out, int Smax, int Hq, int Hkv,
                         float scale) {
-  constexpr int E = D / 32;              // output elements held by one lane
+  using V = VRow<T, D>;
+  constexpr int E = V::E;                // output elements held by one lane
   constexpr int CN = Chunk<T>::N;        // elements per 16-byte load
   constexpr int NC = D / CN;             // 16-byte loads per K row
-  constexpr int CB = NC < 8 ? NC : 8;    // of which this many are in flight
-  using V = Vec<T, E>;
+  constexpr int CB = loads_in_flight(NC);  // of which this many are in flight
 
   // block (b, hk, z) takes query heads h0 .. h0 + G - 1 of KV head hk
   const int b = blockIdx.x, hk = blockIdx.y;
@@ -117,7 +152,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const size_t row_stride = (size_t)Hkv * D;
   const size_t base = ((size_t)b * Smax * Hkv + hk) * D;
   const T* kbase = kc + base;
-  const T* vbase = vc + base + lane * E;
+  const T* vbase = vc + base;
 
   // Inside the loop nothing branches on data: a position past the length
   // reads the last live row instead (a valid address) and is masked, so the
@@ -180,8 +215,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         V vr[VR];
 #pragma unroll
         for (int r = 0; r < VR; ++r)
-          vr[r] = *reinterpret_cast<const V*>(
-              vbase + (size_t)min(j0 + r0 + r, last) * row_stride);
+          vr[r].load(vbase + (size_t)min(j0 + r0 + r, last) * row_stride,
+                     lane);
 #pragma unroll
         for (int r = 0; r < VR; ++r) {
 #pragma unroll
@@ -211,7 +246,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       sm_l[warp][gi] = lsum;
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][gi][lane * E + e] = acc[gi][e];
+    for (int e = 0; e < E; ++e) {
+      const int c = V::col(lane, e);
+      if (c < D) sm_acc[warp][gi][c] = acc[gi][e];
+    }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
@@ -281,6 +319,9 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
                              stream);
     case 64:
       return launch_d<T, 64>(q, kc, vc, lens, out, B, Smax, Hq, Hkv, scale,
+                             stream);
+    case 80:
+      return launch_d<T, 80>(q, kc, vc, lens, out, B, Smax, Hq, Hkv, scale,
                              stream);
     case 128:
       return launch_d<T, 128>(q, kc, vc, lens, out, B, Smax, Hq, Hkv, scale,

@@ -217,6 +217,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     case 64:
       return launch_d<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                              q_offset, scale, stream);
+    case 80:   // zamba2's shared attention: five output columns a thread
+      return launch_d<T, 80>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+                             q_offset, scale, stream);
     case 128:
       return launch_d<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                               q_offset, scale, stream);

@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.layers import NEG_INF
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def _lens_tensor(cache_len, b: int, device) -> torch.Tensor:

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.layers import NEG_INF
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, q_chunk: int = 512,

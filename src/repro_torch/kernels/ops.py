@@ -6,7 +6,8 @@
                   CPU tensors, which is how the CPU tests reach it;
   * "plain"     — the plain PyTorch version on whatever device the tensors
                   are on (the kernels' on-device yardstick);
-  * "reference" — the O(S^2) oracles of ``ref.py`` (tests only).
+  * "reference" — the oracles of ``ref.py`` (O(S^2) attention, token-by-
+                  token recurrences; tests only).
 """
 from __future__ import annotations
 
@@ -15,11 +16,21 @@ from typing import Dict
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_chunk as _k3
+from repro_torch.kernels import ssd_chunk as _k4
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rwkv6_chunk import wkv6_plain
+from repro_torch.kernels.ssd_chunk import ssd_plain
 
 _decode_kernel = _k1.decode_attention
 _flash_kernel = _k2.flash_attention
+_wkv6_kernel = _k3.wkv6
+_ssd_kernel = _k4.ssd
+_KERNELS = {"decode_attention": _decode_kernel,
+            "flash_attention": _flash_kernel,
+            "wkv6": _wkv6_kernel,
+            "ssd": _ssd_kernel}
 
 
 def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
@@ -48,12 +59,31 @@ def decode_attention(q, k_cache, v_cache, cache_len, impl="kernel"):
     raise ValueError(impl)
 
 
+def wkv6(r, k, v, w, u, initial_state=None, chunk=64, impl="kernel"):
+    if impl == "kernel":
+        return _wkv6_kernel(r, k, v, w, u, initial_state, chunk=chunk)
+    if impl == "plain":
+        return wkv6_plain(r, k, v, w, u, initial_state, chunk=chunk)
+    if impl == "reference":
+        return ref.wkv6_ref(r, k, v, w, u, initial_state)
+    raise ValueError(impl)
+
+
+def ssd(x, dt, A, B, C, D, initial_state=None, chunk=64, impl="kernel"):
+    if impl == "kernel":
+        return _ssd_kernel(x, dt, A, B, C, D, initial_state, chunk=chunk)
+    if impl == "plain":
+        return ssd_plain(x, dt, A, B, C, D, initial_state, chunk=chunk)
+    if impl == "reference":
+        return ref.ssd_ref(x, dt, A, B, C, D, initial_state)
+    raise ValueError(impl)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {"decode_attention": _decode_kernel.launches,
-            "flash_attention": _flash_kernel.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _decode_kernel.launches = 0
-    _flash_kernel.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0

@@ -8,7 +8,8 @@ surface the serving layer uses:
     decode_step(cache, batch) -> (logits, cache)
     init_cache(shape)       -> zeroed KV cache for decode shapes
 
-Only the dense family is ported so far; the others raise
+The dense (``DecoderLM``), ssm (``RWKV6Model``) and hybrid
+(``Zamba2Model``) families are ported; the others raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -47,8 +48,6 @@ class RunConfig:
 _PENDING = {
     "moe": "A10 (models/moe.py)",
     "vlm": "A10 (VLM leg, apply_mrope)",
-    "ssm": "A8 (models/rwkv.py, kernel K3)",
-    "hybrid": "A9 (models/ssm.py, kernel K4)",
     "audio": "A11 (models/whisper.py)",
 }
 
@@ -59,6 +58,12 @@ def build_model(cfg: ArchConfig, run_cfg: Optional[RunConfig] = None,
     if cfg.family == "dense":
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, run_cfg, device=device)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv import RWKV6Model
+        return RWKV6Model(cfg, run_cfg, device=device)
+    if cfg.family == "hybrid":
+        from repro_torch.models.ssm import Zamba2Model
+        return Zamba2Model(cfg, run_cfg, device=device)
     if cfg.family in _PENDING:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "

@@ -72,7 +72,10 @@ need = {"repro_torch.kernels.ops", "repro_torch.kernels.build",
         "repro_torch.models.transformer", "repro_torch.serving.engine",
         "repro_torch.serving.exec_cache", "repro_torch.live.backend",
         "repro_torch.core.cluster", "repro_torch.simcore.engine",
-        "repro_torch.configs.smollm_360m", "repro_torch.convert"}
+        "repro_torch.configs.smollm_360m", "repro_torch.convert",
+        "repro_torch.models.rwkv", "repro_torch.models.ssm",
+        "repro_torch.kernels.rwkv6_chunk", "repro_torch.kernels.ssd_chunk",
+        "repro_torch.kernels.chunked"}
 assert need <= set(names), need - set(names)
 from repro_torch.kernels import build
 assert build._lib is None            # nothing was built or loaded on import
@@ -98,16 +101,23 @@ def test_sources_name_no_jax_import():
         assert not pat.search(_read(p)), p
 
 
-def test_kernel_sources_are_plain_cuda():
-    """Both kernels exist as hand-written CUDA C++ with a plain C interface:
-    no PyTorch headers (those turn a seconds-long build into minutes)."""
+KERNELS = ["decode_attention", "flash_attention", "rwkv6_chunk", "ssd_chunk"]
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_sources_are_plain_cuda(name):
+    """Every kernel exists as hand-written CUDA C++ with a plain C
+    interface: no PyTorch headers (those turn a seconds-long build into
+    minutes), no library kernels, and a note naming the TPU kernel it
+    replaces."""
     csrc = os.path.join(PORT, "kernels", "csrc")
-    for name, entry in (("decode_attention.cu", "repro_decode_attention"),
-                        ("flash_attention.cu", "repro_flash_attention")):
-        text = _read(os.path.join(csrc, name))
-        assert "__global__" in text and f'extern "C" int {entry}' in text
-        assert "torch/" not in text and "ATen" not in text
-        assert "src/repro/kernels/" in text      # names what it replaces
+    entry = {"rwkv6_chunk": "repro_wkv6_chunk",
+             "ssd_chunk": "repro_ssd_chunk"}.get(name, f"repro_{name}")
+    text = _read(os.path.join(csrc, name + ".cu"))
+    assert "__global__" in text and f'extern "C" int {entry}' in text
+    assert "torch/" not in text and "ATen" not in text
+    assert "cublas" not in text.lower() and "cutlass" not in text.lower()
+    assert f"src/repro/kernels/{name}.py" in text  # names what it replaces
 
 
 def test_default_device_raises_without_cuda():
@@ -136,27 +146,46 @@ def test_default_device_raises_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_only_a_cpu_tensor_takes_the_plain_path():
+def _meta_call(name):
+    """The kernel's wrapper and a call of it on 'meta' tensors."""
+    import importlib
+
+    fn = getattr(importlib.import_module(f"repro_torch.kernels.{name}"), {
+        "rwkv6_chunk": "wkv6", "ssd_chunk": "ssd"}.get(name, name))
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
+
+    if name == "flash_attention":
+        return fn, lambda: fn(meta(1, 4, 6, 32), meta(1, 4, 2, 32),
+                              meta(1, 4, 2, 32))
+    if name == "decode_attention":
+        return fn, lambda: fn(meta(1, 1, 6, 32), meta(1, 4, 2, 32),
+                              meta(1, 4, 2, 32), 3)
+    if name == "rwkv6_chunk":
+        r = meta(1, 16, 2, 16)
+        return fn, lambda: fn(r, r, r, r, meta(2, 16), chunk=16)
+    x, bc = meta(1, 16, 2, 8), meta(1, 16, 2, 16)
+    return fn, lambda: fn(x, meta(1, 16, 2), meta(2), bc, bc, meta(2),
+                          chunk=16)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_only_a_cpu_tensor_takes_the_plain_path(name):
     """The wrappers take the plain version for a CPU tensor and for nothing
     else: any other device launches the kernel or raises, with no ``try``
     that falls back. A 'meta' tensor stands in for 'not on the CPU' here."""
     import inspect
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
 
-    q = torch.empty(1, 4, 6, 32, device="meta")
-    kv = torch.empty(1, 4, 2, 32, device="meta")
+    fn, call = _meta_call(name)
     before = ops.launch_counts()
     with pytest.raises(RuntimeError, match="no kernel for device"):
-        flash_attention(q, kv, kv)
-    with pytest.raises(RuntimeError, match="no kernel for device"):
-        decode_attention(q[:, :1], kv, kv, 3)
+        call()
     assert ops.launch_counts() == before
-    for fn in (decode_attention, flash_attention):
-        src = inspect.getsource(fn)
-        assert "try:" not in src and "except" not in src
+    src = inspect.getsource(fn)
+    assert "try:" not in src and "except" not in src
 
 
 def test_event_budget_pin_holds_on_the_copied_cluster():

@@ -154,8 +154,7 @@ def test_init_params_scales_and_determinism():
 
 @pytest.mark.parametrize("name,item", [
     ("kimi-k2-1t-a32b", "A10"), ("arctic-480b", "A10"),
-    ("qwen2-vl-72b", "A10"), ("rwkv6-7b", "A8"), ("zamba2-2.7b", "A9"),
-    ("whisper-small", "A11")])
+    ("qwen2-vl-72b", "A10"), ("whisper-small", "A11")])
 def test_unported_families_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(get_config(name).reduced(), device="cpu")

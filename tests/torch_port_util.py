@@ -40,18 +40,21 @@ def reduced_pair(name, **kw):
     return jax_get(name).reduced(**kw), torch_get(name).reduced(**kw)
 
 
-def model_pair(name, seed=0, q_chunk=8, kv_chunk=8, **kw):
+def model_pair(name, seed=0, q_chunk=8, kv_chunk=8, seq_chunk=8, **kw):
     """(jax model, jax params, torch model) with identical weights: drawn by
-    the reference's init, carried over as numpy, loaded by the converter."""
+    the reference's init, carried over as numpy, loaded by the converter.
+    ``seq_chunk`` is the recurrences' chunk: a forward's length must be a
+    multiple of it."""
     import jax
     from repro.models.api import RunConfig as JRun, build_model as jbuild
     from repro_torch import convert
     from repro_torch.models.api import RunConfig as TRun, build_model
 
     cj, ct = reduced_pair(name, **kw)
-    mj = jbuild(cj, JRun(q_chunk=q_chunk, kv_chunk=kv_chunk))
+    mj = jbuild(cj, JRun(q_chunk=q_chunk, kv_chunk=kv_chunk,
+                         seq_chunk=seq_chunk))
     pj = mj.init_params(jax.random.PRNGKey(seed))
-    mt = build_model(ct, TRun(q_chunk=q_chunk, kv_chunk=kv_chunk),
-                     device="cpu")
+    mt = build_model(ct, TRun(q_chunk=q_chunk, kv_chunk=kv_chunk,
+                              seq_chunk=seq_chunk), device="cpu")
     convert.load_params(mt, jax_tree_to_numpy(pj))
     return mj, pj, mt
