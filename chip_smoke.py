@@ -13,8 +13,13 @@ JSON line:
   kernels  every kernel against its plain PyTorch version at the main paths'
            shapes and at edge shapes, with times: ``ms`` is device time (the
            calls replayed from a CUDA graph between two CUDA events, so the
-           host's launch path is left out), ``eager_ms`` the same calls
-           made one by one from Python (what an eager caller waits for)
+           host's launch path is left out; a graph holds 32 decode layers or
+           8 prefill calls, so one graph launch is spread over them),
+           ``eager_ms`` the same calls made one by one from Python (what an
+           eager caller waits for), and for flash attention
+           ``profiled_ms``, the device time ``torch.profiler`` records for a
+           call; flash-decode's split of the KV axis is checked at other
+           plans, on zero-length rows, and eager against graph replay
 
 then three paths, each driven with the launch counters zeroed just before
 it and read just after it:
@@ -60,6 +65,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -74,6 +80,7 @@ KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECURRENCE_TOL = {dt: 5 * tol for dt, tol in KERNEL_TOL.items()}
 
 SEED = 1234
+FLASH_CALLS = 8      # K2 calls per timed CUDA graph
 N_REQUESTS = 16
 MAX_NEW = 32
 MAX_SEQ = 1024
@@ -132,6 +139,24 @@ def device_ms(fn, n_inner: int = 1, reps: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(graph.replay, n_inner, reps=reps, warmup=2)
+
+
+def profiled_ms(fn, calls: int = 10) -> Optional[float]:
+    """Milliseconds of device time a call of ``fn`` keeps the card busy,
+    summed over its kernels as ``torch.profiler`` records them (no launch
+    gaps); None if the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -206,13 +231,16 @@ def sdpa_decode(q, kc, vc, mask):
 
 
 def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
-                 scalar_len=None):
+                 scalar_len=None, split=None, plans=()):
     """Kernel vs plain on one decode shape. With ``timed`` the calls walk
     ``n_layers`` distinct caches (335 MB at the main path's shape), as one
     decode step of the model does, so that every launch finds its K and V
-    cold in L2 as the real caller does."""
+    cold in L2 as the real caller does. ``split`` requires the planner to
+    split the KV range (True) or not (False); ``plans`` are other
+    ``(nsplit, chunk)`` to time beside the planner's."""
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      split_plan)
 
     n_layers = 32 if timed else 1
     q, kc, vc, lens_t = decode_inputs(B, Smax, Hq, Hkv, D, dtype, lens,
@@ -222,14 +250,23 @@ def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
     want = decode_attention_plain(q[0], kc[0], vc[0], arg)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
+    plan = split_plan(B, Hq, Hkv, Smax,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
     rec = {"case": name, "kernel": "decode_attention",
            "shape": {"B": B, "Smax": Smax, "Hq": Hq, "Hkv": Hkv, "D": D},
            "dtype": str(dtype).replace("torch.", ""),
            "lens": lens if scalar_len is None else scalar_len,
-           "max_abs_err": err, "tol": KERNEL_TOL[dtype]}
+           "plan": plan, "max_abs_err": err, "tol": KERNEL_TOL[dtype]}
     require(bool(torch.isfinite(got.float()).all()), f"{name}: not finite")
     require(err <= KERNEL_TOL[dtype],
             f"{name}: max_abs_err {err} > {KERNEL_TOL[dtype]}")
+    if split is not None:
+        require((plan[0] > 1) == split, f"{name}: plan {plan}")
+    for alt in plans:
+        alt_err = max_abs_err(decode_attention(q[0], kc[0], vc[0], arg,
+                                               plan=alt), want)
+        require(alt_err <= KERNEL_TOL[dtype],
+                f"{name}: plan {alt}: max_abs_err {alt_err}")
     if timed:
         item = q.element_size()
         live = sum(min(max(int(n), 0), Smax) for n in lens)
@@ -261,6 +298,48 @@ def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
             library_max_abs_err=lib_err, **bound(nbytes, flops,
                                                  PEAK_FLOPS[dtype]))
         rec["ms_again"] = device_ms(run_kernel, n_layers)
+        rec["plan_ms"] = {}
+        for alt in plans:
+            def run_alt(alt=alt):
+                for i in range(n_layers):
+                    decode_attention(q[i], kc[i], vc[i], lens_t, plan=alt)
+            rec["plan_ms"]["x".join(map(str, alt))] = device_ms(run_alt,
+                                                                n_layers)
+    return rec
+
+
+def check_decode_graph(name, B, Smax, Hq, Hkv, D, dtype, lens):
+    """One split call made twice eagerly, then captured into one CUDA graph
+    and replayed twice: the four outputs must be bit-equal (each launch
+    leaves the split counters at 0 for the next)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      split_plan)
+
+    plan = split_plan(B, Hq, Hkv, Smax,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    require(plan[0] > 1, f"{name}: plan {plan} does not split")
+    q, kc, vc, lens_t = decode_inputs(B, Smax, Hq, Hkv, D, dtype, lens, 1,
+                                      seed=SEED + 6)
+    q, kc, vc = q[0], kc[0], vc[0]
+    outs = [decode_attention(q, kc, vc, lens_t).clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = decode_attention(q, kc, vc, lens_t)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(static.clone())
+    equal = [bool(torch.equal(outs[0], o)) for o in outs]
+    err = max_abs_err(outs[0], decode_attention_plain(q, kc, vc, lens_t))
+    rec = {"case": name, "kernel": "decode_attention",
+           "shape": {"B": B, "Smax": Smax, "Hq": Hq, "Hkv": Hkv, "D": D},
+           "dtype": str(dtype).replace("torch.", ""), "lens": lens,
+           "plan": plan, "eager_eager_graph_graph_bit_equal": equal,
+           "max_abs_err": err, "tol": KERNEL_TOL[dtype]}
+    require(all(equal), f"{name}: outputs differ: {equal}")
+    require(err <= KERNEL_TOL[dtype], f"{name}: max_abs_err {err}")
     return rec
 
 
@@ -283,6 +362,10 @@ def visible_pairs(Sq, Skv, causal, q_offset) -> int:
 
 def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
                 timed=False):
+    """Kernel vs plain on one prefill shape. Timed: ``ms`` and
+    ``library_ms`` from FLASH_CALLS calls a graph, ``profiled_ms`` and
+    ``library_profiled_ms`` the device time ``torch.profiler`` records for
+    one call."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -305,27 +388,42 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
         flops = 4.0 * D * Hq * B * visible_pairs(Sq, Skv, causal, q_offset)
 
-        def run_kernel():
+        # FLASH_CALLS calls a graph, so that one graph launch is spread
+        # over them (K1's cases spread it over their 32 layers); the time
+        # from a graph of one call is kept beside it
+        def calls(fn, n=FLASH_CALLS):
+            def run():
+                for _ in range(n):
+                    fn()
+            return run
+
+        def one_kernel():
             return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
-        def run_plain():
+        def one_plain():
             return flash_attention_plain(q, k, v, causal=causal,
                                          q_offset=q_offset)
 
+        def one_library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
+
         rec.update(
-            ms=device_ms(run_kernel), plain_ms=device_ms(run_plain, reps=5),
-            eager_ms=time_ms(run_kernel),
-            eager_plain_ms=time_ms(run_plain, reps=5, warmup=1),
+            ms=device_ms(calls(one_kernel), FLASH_CALLS),
+            plain_ms=device_ms(calls(one_plain), FLASH_CALLS, reps=5),
+            eager_ms=time_ms(one_kernel),
+            eager_plain_ms=time_ms(one_plain, reps=5, warmup=1),
+            ms_one_call_graph=device_ms(one_kernel),
             library_ms=None, **bound(nbytes, flops, PEAK_FLOPS[dtype]))
         if Sq == Skv and q_offset == 0:
-            def run_library():
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=causal, enable_gqa=True).transpose(1, 2)
-            rec["library_max_abs_err"] = max_abs_err(run_library(), want)
-            rec["library_ms"] = device_ms(run_library)
-            rec["eager_library_ms"] = time_ms(run_library)
-        rec["ms_again"] = device_ms(run_kernel)
+            rec["library_max_abs_err"] = max_abs_err(one_library(), want)
+            rec["library_ms"] = device_ms(calls(one_library), FLASH_CALLS)
+            rec["library_ms_one_call_graph"] = device_ms(one_library)
+            rec["library_profiled_ms"] = profiled_ms(one_library)
+            rec["eager_library_ms"] = time_ms(one_library)
+        rec["ms_again"] = device_ms(calls(one_kernel), FLASH_CALLS)
+        rec["profiled_ms"] = profiled_ms(one_kernel)
     return rec
 
 
@@ -536,7 +634,8 @@ def phase_kernels() -> dict:
         # K1 at the main path's shape: one ContinuousBatcher step of
         # smollm-360m, 8 slots, 1024-long cache, per-slot lengths
         check_decode("decode/main/bf16", 8, 1024, 15, 5, 64, bf16, ragged,
-                     timed=True),
+                     timed=True, split=True,
+                     plans=[(1, 1024), (8, 128), (16, 64)]),
         check_decode("decode/main/fp32", 8, 1024, 15, 5, 64, f32, ragged,
                      timed=True),
         check_decode("decode/scalar-len", 8, 1024, 15, 5, 64, bf16,
@@ -546,6 +645,21 @@ def phase_kernels() -> dict:
         check_decode("decode/mha-d32", 2, 300, 4, 4, 32, f32, [300, 17]),
         check_decode("decode/g16-d128", 2, 512, 32, 2, 128, bf16, [512, 129]),
         check_decode("decode/mqa48-d128", 1, 640, 48, 1, 128, f32, [601]),
+        # K1's split of the KV axis: a long single row (what it is for), a
+        # ragged batch with rows that end before the first split boundary
+        # (256) and a row of length 0, a batch large enough not to split,
+        # and the counters' reset across eager calls and graph replays
+        check_decode("decode/long-row/bf16", 1, 4096, 15, 5, 64, bf16,
+                     [4000], timed=True, split=True,
+                     plans=[(1, 4096), (32, 128), (8, 512)]),
+        check_decode("decode/split-ragged/bf16", 4, 2048, 15, 5, 64, bf16,
+                     [0, 100, 129, 2048], split=True),
+        check_decode("decode/split-ragged/fp32", 4, 2048, 15, 5, 64, f32,
+                     [0, 100, 129, 2048], split=True),
+        check_decode("decode/no-split/bf16", 32, 256, 15, 5, 64, bf16,
+                     [256, 0, 1, 255] * 8, split=False),
+        check_decode_graph("decode/graph-replay/bf16", 8, 1024, 15, 5, 64,
+                           bf16, ragged),
         # K2 at the main path's shape (the 256-token prefill of the model
         # phase) and at the sizes named for it
         check_flash("flash/main/bf16", 1, 256, 256, 15, 5, 64, bf16, True,
@@ -565,10 +679,21 @@ def phase_kernels() -> dict:
         check_flash("flash/q_offset-short", 1, 70, 200, 6, 2, 32, f32, True,
                     q_offset=17),
         check_flash("flash/mqa-d128", 1, 130, 130, 8, 1, 128, bf16, True),
+        # K2's tensor-core path at the edges the fp32 cases above cover
+        check_flash("flash/ragged333/causal/bf16", 2, 333, 333, 15, 5, 64,
+                    bf16, True),
+        check_flash("flash/q_offset/bf16", 2, 100, 333, 15, 5, 64, bf16,
+                    True, q_offset=233),
+        check_flash("flash/q_offset-short/bf16", 1, 70, 200, 6, 2, 32, bf16,
+                    True, q_offset=17),
+        check_flash("flash/d32/bf16", 1, 256, 256, 6, 2, 32, bf16, True),
+        check_flash("flash/sq1-skv77/bf16", 1, 1, 77, 15, 5, 64, bf16,
+                    False),
         # K1 and K2 at zamba2-2.7b's shared attention: 32/32 heads, D=80;
         # K1 at the model phase's last decode step (256 cached positions)
         check_decode("decode/zamba2-d80/bf16", 1, 1024, 32, 32, 80, bf16,
-                     [256], timed=True),
+                     [256], timed=True,
+                     plans=[(1, 1024), (2, 512), (8, 128)]),
         check_decode("decode/zamba2-d80/fp32", 1, 1024, 32, 32, 80, f32,
                      [256]),
         check_decode("decode/d80-ragged", 3, 300, 32, 32, 80, bf16,

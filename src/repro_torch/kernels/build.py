@@ -125,7 +125,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_decode_attention.restype = ci
     lib.repro_decode_attention.argtypes = [
         vp, vp, vp, vp, vp,          # q, k_cache, v_cache, lens, out
+        vp, vp,                      # split partials, split counters
         ci, ci, ci, ci, ci,          # B, Smax, Hq, Hkv, D
+        ci, ci,                      # nsplit, chunk
         ci, cf, vp]                  # is_bf16, scale, stream
     lib.repro_flash_attention.restype = ci
     lib.repro_flash_attention.argtypes = [

@@ -13,7 +13,9 @@ things live here, as for every kernel of the port:
     launch, so a run can show that it went through the kernel.
 
 ``cache_len`` may be a Python int, a 0-d tensor or a ``(B,)`` tensor (one
-length per batch row, what continuous batching passes).
+length per batch row, what continuous batching passes). The lengths stay on
+the device: the kernel's split of the KV axis over blocks (``split_plan``)
+is chosen from the shapes alone, so a call never waits for the card.
 
 A row with ``cache_len == 0`` yields zeros, in the kernel and in the plain
 version alike. That follows the Pallas body, which skips every block and
@@ -23,6 +25,7 @@ model never asks for it (it attends over ``cache_len + 1`` positions).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,6 +34,69 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import NEG_INF
 
 SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
+SMS = 132                 # streaming multiprocessors of an H100
+WARPS = 8                 # warps a block (the kernel's NW)
+BLOCKS_PER_SM = 2         # blocks the split aims at, per SM
+MAX_SPLIT = 64            # splits of one row at most (the kernel's limit)
+_COUNTERS = {}            # device index -> [int32 split counters, all 0]
+
+
+def heads_per_block(g: int) -> int:
+    """Query heads one block handles: the largest of {8, 6, 4, 3, 2, 1}
+    that divides the group size (the kernel's own rule)."""
+    return next(c for c in (8, 6, 4, 3, 2, 1) if g % c == 0)
+
+
+def split_plan(b: int, hq: int, hkv: int, smax: int,
+               sms: int = SMS) -> tuple:
+    """How the kernel splits each (row, KV head, head group) over blocks,
+    from shapes only (never the lengths): ``(nsplit, chunk)``, split ``s``
+    covering positions ``[s * chunk, min((s + 1) * chunk, smax))``.
+
+    When the groups alone give a block per SM, nothing is split: one block
+    per group (the single-pass path, no scratch). Otherwise the groups are
+    split until there are about ``BLOCKS_PER_SM * sms`` blocks, but no split
+    is shorter than one 32-position tile per warp of its ``WARPS`` warps;
+    ``chunk`` is the multiple of that nearest ``smax / nsplit``, so every
+    warp starts on a tile of its own."""
+    units = b * hkv * (hq // hkv // heads_per_block(hq // hkv))
+    tile = 32 * WARPS
+    want = min(-(-BLOCKS_PER_SM * sms // units), -(-smax // tile),
+               MAX_SPLIT)
+    if units >= sms or want <= 1:
+        return 1, smax
+    chunk = max(1, int(smax / want / tile + 0.5)) * tile
+    if -(-smax // chunk) > MAX_SPLIT:
+        chunk = -(-smax // (MAX_SPLIT * tile)) * tile
+    return -(-smax // chunk), chunk
+
+
+def _index(device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The device's split counters (at least ``n``). They are made zeroed
+    outside any CUDA-graph capture and every launch leaves them at 0, so a
+    captured launch may use them; a first use inside a capture raises. A
+    buffer outgrown is kept, not freed: a graph captured on it stays
+    valid."""
+    bufs = _COUNTERS.setdefault(_index(device), [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_attention: the split counters of this device are "
+                "first needed inside a CUDA-graph capture; make one call "
+                "at this size before capturing")
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _lens_tensor(cache_len, b: int, device) -> torch.Tensor:
@@ -90,8 +156,11 @@ def _check(q, k_cache, v_cache) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def decode_attention(q, k_cache, v_cache, cache_len,
+                     plan=None) -> torch.Tensor:
+    """Kernel on CUDA tensors, plain version on CPU tensors. ``plan``
+    overrides ``split_plan``'s ``(nsplit, chunk)`` (for measuring the
+    kernel); the plain version ignores it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":
@@ -101,11 +170,21 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     lens = _lens_tensor(cache_len, b, q.device)
     out = torch.empty_like(q)
+    nsplit, chunk = plan or split_plan(b, hq, hkv, smax,
+                                       _sm_count(_index(q.device)))
+    part = counters = None
+    if nsplit > 1:
+        part = torch.empty(b * hq * nsplit * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(q.device, b * hq)
     lib = build.load()
     with build.on_device(q.device):
         code = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), b, smax, hq, hkv, d,
+            lens.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, smax, hq, hkv, d, nsplit, chunk,
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(lib, code, "decode_attention")

@@ -93,6 +93,8 @@ def _check(q, k, v, q_offset) -> None:
             raise TypeError(f"{name}: dtype/device differ from q's")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def flash_attention(q, k, v, causal: bool = True, q_chunk: int = 512,
