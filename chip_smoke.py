@@ -19,7 +19,18 @@ JSON line:
            eager caller waits for), and for flash attention
            ``profiled_ms``, the device time ``torch.profiler`` records for a
            call; flash-decode's split of the KV axis is checked at other
-           plans, on zero-length rows, and eager against graph replay
+           plans, on zero-length rows, and eager against graph replay; the
+           recurrences (WKV6, SSD), whose products run on the tensor cores
+           as 3xTF32, are checked where the split's error is largest (every
+           log w at the clamp, factors up to e^32), at chunks of 32 and 16
+           (the mma tiles' edges), in bf16 at full width, and eager against
+           graph replay (bit-equal), and from inputs that are not 16-byte
+           aligned (element copies); their rows carry the bound of the
+           arithmetic they run (three TF32 products at 495 TFLOP/s) beside
+           the fp32 one, and ``ms`` three times (``ms``, ``ms_again``,
+           ``ms_third``) for the spread
+  designs  the recurrence kernels' other block shapes (``design`` of the
+           wrappers) at the main paths' shapes, timed in turns
 
 then three paths, each driven with the launch counters zeroed just before
 it and read just after it:
@@ -43,8 +54,9 @@ it and read just after it:
                same weights, equal greedy tokens
 
 then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
-error, time, plain time, library time, bound), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+error, time, plain time, library time, bound; for WKV6 and SSD also the
+3xTF32 bound), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 
 Tolerances. A kernel against its plain version on the same inputs: 2e-5 in
 fp32 (both accumulate in fp32; only the summation order differs) and 2e-2 in
@@ -52,7 +64,9 @@ bf16 (one bf16 rounding of an output of magnitude <= ~4); the recurrences
 (WKV6, SSD) five times that, as an allclose (atol = rtol), the limits of
 tests/test_kernels.py: their chunked form multiplies factors exp(+-cum) of
 up to e^32 whose fp32 prefix sums differ by a few ulp between the two
-summation orders. fp32 comparisons run with TF32 switched off. The SSD at
+summation orders, and the kernels' 3xTF32 products drop ~2^-21 of each
+product (tests/test_torch_recurrence_designs.py models the split). fp32
+comparisons run with TF32 switched off in PyTorch. The SSD at
 the reference init's scale and the model-level tolerances are stated where
 they are applied.
 """
@@ -76,11 +90,17 @@ import torch.nn.functional as F  # noqa: E402
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12   # the tensor cores in TF32; a 3xTF32 product is 3 of them
 KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECURRENCE_TOL = {dt: 5 * tol for dt, tol in KERNEL_TOL.items()}
 
 SEED = 1234
 FLASH_CALLS = 8      # K2 calls per timed CUDA graph
+# the block shapes of K4 and K3 timed in turns (``design`` of the wrappers;
+# 0 is the launcher's own choice, csrc/ssd_chunk.cu and rwkv6_chunk.cu
+# list the others)
+SSD_DESIGNS = (0, 1, 2, 3, 4)
+WKV6_DESIGNS = (0, 1, 2)
 N_REQUESTS = 16
 MAX_NEW = 32
 MAX_SEQ = 1024
@@ -210,6 +230,17 @@ def bound(nbytes, flops, peak):
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def bound_3xtf32(nbytes, product_flops):
+    """The bound of the arithmetic the recurrence kernels run: their
+    products as three TF32 products each on the tensor cores, against the
+    bytes."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 3 * product_flops / TF32_FLOPS * 1e3
+    return {"bound_3xtf32_ms": max(by_bytes, by_ops),
+            "bound_3xtf32_by": "bytes" if by_bytes >= by_ops
+            else "operations"}
 
 
 def decode_inputs(B, Smax, Hq, Hkv, D, dtype, lens, n_layers, seed):
@@ -434,8 +465,11 @@ def allclose_excess(got, want, tol) -> float:
     return float(((got - want).abs() - tol * want.abs()).max())
 
 
-def wkv6_inputs(B, S, H, dk, dv, dtype, seed):
-    """The distributions of tests/test_kernels.py, drawn on the card."""
+def wkv6_inputs(B, S, H, dk, dv, dtype, seed, strong_decay=False):
+    """The distributions of tests/test_kernels.py, drawn on the card. With
+    ``strong_decay`` every log w sits at the models' clamp (-0.5), so that
+    over a chunk of 64 the factors exp(+-cum) reach e^32, where the 3xTF32
+    split's error is largest."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def n(*shape):
@@ -443,17 +477,33 @@ def wkv6_inputs(B, S, H, dk, dv, dtype, seed):
 
     r, k, v = (n(B, S, H, d) * 0.5 for d in (dk, dk, dv))
     w = torch.exp(-torch.exp(n(B, S, H, dk) * 0.5 - 1.5)).clamp(0.62, 0.9999)
+    if strong_decay:
+        w = torch.full_like(w, math.exp(-0.5))
     u = n(H, dk) * 0.3
     s0 = n(B, H, dk, dv) * 0.1
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
 
 
-def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False):
+def misalign(t):
+    """The same values in a contiguous view that starts one element past an
+    aligned address: the recurrence kernels then copy their inputs element
+    by element instead of 16 bytes at a time."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
+               strong_decay=False, misaligned=False):
     """K3 against its plain version (the chunked form): y and the final
     state. ``state=False`` passes zeros, as the model's forward does."""
     from repro_torch.kernels.rwkv6_chunk import wkv6, wkv6_plain
 
-    r, k, v, w, u, s0 = wkv6_inputs(B, S, H, dk, dv, dtype, SEED + 3)
+    r, k, v, w, u, s0 = wkv6_inputs(B, S, H, dk, dv, dtype, SEED + 3,
+                                    strong_decay)
+    if misaligned:
+        r, k, v, w = (misalign(t) for t in (r, k, v, w))
     if not state:
         s0 = torch.zeros_like(s0)
     tol = RECURRENCE_TOL[dtype]
@@ -464,6 +514,7 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False):
            "shape": {"B": B, "S": S, "H": H, "dk": dk, "dv": dv,
                      "chunk": chunk},
            "dtype": str(dtype).replace("torch.", ""), "initial_state": state,
+           "strong_decay": strong_decay, "misaligned": misaligned,
            "max_abs_err": max_abs_err(got[0], want[0]),
            "state_max_abs_err": max_abs_err(got[1], want[1]),
            "allclose_excess": max(allclose_excess(a, b, tol)
@@ -480,10 +531,11 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False):
                   + B * S * H * dk * 4 + H * dk * 4     # w, u
                   + 2 * B * H * dk * dv * 4             # state in and out
                   + B * S * H * dv * 4)                 # y
-        per_chunk = (2 * dk * chunk * (chunk - 1) // 2  # strictly-lower scores
+        products = (2 * dk * chunk * (chunk - 1) // 2   # strictly-lower scores
+                    + 2 * dv * chunk * (chunk + 1) // 2  # scores @ v
+                    + 4 * chunk * dk * dv)               # q_dec @ S, carry
+        per_chunk = (products
                      + 2 * dk * chunk                   # the u bonus
-                     + 2 * dv * chunk * (chunk + 1) // 2  # scores @ v
-                     + 4 * chunk * dk * dv              # q_dec @ S, carry
                      + dk * dv)                         # the state's decay
         flops = float(B * H * n_chunks * per_chunk)
 
@@ -494,6 +546,7 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False):
             return wkv6_plain(r, k, v, w, u, s0, chunk=chunk)
 
         rec.update(bound(nbytes, flops, PEAK_FLOPS[dtype]))
+        rec.update(bound_3xtf32(nbytes, float(B * H * n_chunks * products)))
         rec.update(ms=device_ms(run_kernel), plain_ms=device_ms(run_plain,
                                                                 reps=5),
                    eager_ms=time_ms(run_kernel),
@@ -501,6 +554,7 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False):
                    library_ms=None,
                    library_note="no PyTorch call computes WKV6")
         rec["ms_again"] = device_ms(run_kernel)
+        rec["ms_third"] = device_ms(run_kernel)
     return rec
 
 
@@ -557,13 +611,15 @@ INIT_SCALE_TOL = 1e-3
 
 
 def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
-              timed=False, init_scale=False):
+              timed=False, init_scale=False, misaligned=False):
     """K4 against its plain version (the chunked form): y and the final
     state."""
     from repro_torch.kernels.ssd_chunk import ssd, ssd_plain
 
     x, dt, A, Bm, Cm, D, h0 = ssd_inputs(b, S, H, P, N, dtype, broadcast,
                                          SEED + 4, init_scale)
+    if misaligned:
+        x, Bm, Cm = (misalign(t) for t in (x, Bm, Cm))
     if not state:
         h0 = torch.zeros_like(h0)
     tol = RECURRENCE_TOL[dtype]
@@ -574,6 +630,7 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
            "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk},
            "dtype": str(dtype).replace("torch.", ""),
            "bc_head_stride": Bm.stride(2), "initial_state": state,
+           "misaligned": misaligned,
            "max_abs_err": max_abs_err(got[0], want[0]),
            "state_max_abs_err": max_abs_err(got[1], want[1])}
     for t in got:
@@ -601,11 +658,11 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
         pairs = chunk * (chunk + 1) // 2                # j <= i
         # C_i . B_j does not depend on the head when B and C are shared
         scores = 2 * N * pairs * (1 if broadcast else H)
-        per_head = (pairs                               # the decays
-                    + 2 * P * pairs                     # scores @ (x dt)
-                    + 4 * chunk * P * N                 # C h^T, carry
-                    + 3 * chunk * P)                    # x dt, D x
-        flops = float(b * n_chunks * (scores + H * per_head))
+        products = scores + H * (2 * P * pairs          # scores @ (x dt)
+                                 + 4 * chunk * P * N)   # C h^T, carry
+        flops = float(b * n_chunks * (products + H * (
+            pairs                                       # the decays
+            + 3 * chunk * P)))                          # x dt, D x
 
         def run_kernel():
             return ssd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
@@ -614,6 +671,7 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
             return ssd_plain(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
 
         rec.update(bound(nbytes, flops, PEAK_FLOPS[dtype]))
+        rec.update(bound_3xtf32(nbytes, float(b * n_chunks * products)))
         rec.update(ms=device_ms(run_kernel), plain_ms=device_ms(run_plain,
                                                                 reps=5),
                    eager_ms=time_ms(run_kernel),
@@ -621,7 +679,76 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
                    library_ms=None,
                    library_note="no PyTorch call computes the SSD scan")
         rec["ms_again"] = device_ms(run_kernel)
+        rec["ms_third"] = device_ms(run_kernel)
     return rec
+
+
+def check_recurrence_graph(name, kernel):
+    """K3 or K4 at its main path's shape, called twice eagerly, then
+    captured into one CUDA graph and replayed twice: the four (y, state)
+    pairs must be bit-equal (no atomics, no data-dependent order)."""
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.kernels.ssd_chunk import ssd
+
+    if kernel == "wkv6":
+        dtype = torch.bfloat16
+        args = wkv6_inputs(1, 256, 64, 64, 64, dtype, SEED + 7)
+
+        def call():
+            return wkv6(*args, chunk=64)
+    else:
+        dtype = torch.float32
+        args = ssd_inputs(1, 256, 80, 64, 64, dtype, True, SEED + 8)
+
+        def call():
+            return ssd(*args, chunk=64)
+
+    outs = [tuple(t.clone() for t in call()) for _ in range(2)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(tuple(t.clone() for t in static))
+    equal = [all(torch.equal(a, b) for a, b in zip(outs[0], o))
+             for o in outs]
+    rec = {"case": name, "kernel": kernel,
+           "dtype": str(dtype).replace("torch.", ""),
+           "eager_eager_graph_graph_bit_equal": equal}
+    require(all(equal), f"{name}: outputs differ: {equal}")
+    return rec
+
+
+def time_designs(kernel, designs, turns=2):
+    """The kernel's block shapes (``design``) at its main path's shape,
+    timed in turns within this run (d0 d1 .. dn, then dn .. d0, ...): each
+    design's device ms per turn, and its largest difference from design 0's
+    output (a design changes the order of no sum, only who computes it)."""
+    from repro_torch.kernels.rwkv6_chunk import wkv6
+    from repro_torch.kernels.ssd_chunk import ssd
+
+    if kernel == "wkv6":
+        args = wkv6_inputs(1, 256, 64, 64, 64, torch.bfloat16, SEED + 3)
+
+        def call(d):
+            return wkv6(*args, chunk=64, design=d)
+    else:
+        x, dt, A, Bm, Cm, D, h0 = ssd_inputs(1, 256, 80, 64, 64,
+                                             torch.float32, True, SEED + 4)
+
+        def call(d):
+            return ssd(x, dt, A, Bm, Cm, D, None, chunk=64, design=d)
+
+    base = call(0)
+    rec = {d: {"ms": [], "max_abs_diff_vs_design0": max(
+        max_abs_err(a, b) for a, b in zip(call(d), base))} for d in designs}
+    order = list(designs)
+    for t in range(turns):
+        for d in (order if t % 2 == 0 else order[::-1]):
+            rec[d]["ms"].append(device_ms(lambda d=d: call(d)))
+    return {"kernel": kernel, "designs": {str(d): v for d, v in rec.items()}}
 
 
 def phase_kernels() -> dict:
@@ -715,6 +842,16 @@ def phase_kernels() -> dict:
         check_wkv6("wkv6/state-B2/fp32", 2, 128, 8, 64, 64, 32, f32),
         check_wkv6("wkv6/dk16-dv24/fp32", 2, 128, 3, 16, 24, 32, f32),
         check_wkv6("wkv6/dk16-dv24/bf16", 2, 128, 3, 16, 24, 16, bf16),
+        # K3 on the tensor cores (3xTF32): every log w at the clamp, where
+        # the factors reach e^32 and the split's error is largest; the main
+        # shape at chunk 32; eager against CUDA-graph replay
+        check_wkv6("wkv6/strong-decay/fp32", 1, 256, 64, 64, 64, 64, f32,
+                   strong_decay=True),
+        check_wkv6("wkv6/main/fp32/chunk32", 1, 256, 64, 64, 64, 32, f32,
+                   state=False),
+        check_recurrence_graph("wkv6/graph-replay/bf16", "wkv6"),
+        check_wkv6("wkv6/misaligned/bf16", 2, 128, 8, 64, 64, 32, bf16,
+                   misaligned=True),
         # K4 at zamba2-2.7b's forward (80 heads, P = N = 64, chunk 64, fp32
         # as the model passes them, B/C broadcast over heads) and the edges
         check_ssd("ssd/main/fp32", 1, 256, 80, 64, 64, 64, f32, True,
@@ -728,8 +865,21 @@ def phase_kernels() -> dict:
         check_ssd("ssd/one-chunk/bf16", 1, 64, 80, 64, 64, 64, bf16, True),
         check_ssd("ssd/state-B2/fp32", 2, 128, 6, 64, 64, 32, f32, True),
         check_ssd("ssd/state-B2/bf16", 2, 128, 6, 32, 16, 16, bf16, False),
+        # K4 on the tensor cores (3xTF32) at full width: chunks of 32 and 16
+        # (the mma tiles' edges), bf16 inputs, eager against graph replay
+        check_ssd("ssd/main/fp32/chunk32", 1, 256, 80, 64, 64, 32, f32, True,
+                  state=False),
+        check_ssd("ssd/main/fp32/chunk16", 1, 256, 80, 64, 64, 16, f32, True,
+                  state=False),
+        check_ssd("ssd/main/bf16", 1, 256, 80, 64, 64, 64, bf16, True,
+                  state=False),
+        check_recurrence_graph("ssd/graph-replay/fp32", "ssd"),
+        check_ssd("ssd/misaligned/fp32", 2, 128, 6, 64, 64, 32, f32, False,
+                  misaligned=True),
     ]
     emit("kernels", cases=cases)
+    emit("designs", steps=[time_designs("ssd", SSD_DESIGNS),
+                           time_designs("wkv6", WKV6_DESIGNS)])
     by_case = {c["case"]: c for c in cases}
     return {"decode_attention": by_case["decode/main/bf16"],
             "flash_attention": by_case["flash/main/bf16"],
@@ -1161,7 +1311,9 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"], "dtype": rec["dtype"]})
+            "shape": rec["shape"], "dtype": rec["dtype"],
+            **{k: rec[k] for k in ("bound_3xtf32_ms", "bound_3xtf32_by")
+               if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(gpu, flush=True)

@@ -139,7 +139,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, vp,      # r, k, v, w, u, s0
         vp, vp,                      # y, s_out
         ci, ci, ci, ci, ci, ci,      # B, S, H, dk, dv, chunk
-        ci, vp]                      # is_bf16, stream
+        ci, ci, vp]                  # is_bf16, design, stream
     cl = ctypes.c_longlong
     lib.repro_ssd_chunk.restype = ci
     lib.repro_ssd_chunk.argtypes = [
@@ -148,7 +148,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci, ci, ci,      # B, S, H, P, N, chunk
         cl, cl, cl, cl, cl, cl,      # strides (batch, position, head) of x, dt
         cl, cl, cl, cl, cl, cl,      # ... and of B, C
-        ci, vp]                      # is_bf16, stream
+        ci, ci, vp]                  # is_bf16, design, stream
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_cuda_error_string.argtypes = [ci]
 

@@ -62,8 +62,11 @@ def _check(r, k, v, w, u) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def wkv6(r, k, v, w, u, initial_state=None, chunk: int = 64):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def wkv6(r, k, v, w, u, initial_state=None, chunk: int = 64,
+         design: int = 0):
+    """Kernel on CUDA tensors, plain version on CPU tensors. ``design``
+    (CUDA only, for timing) forces one of the kernel's block shapes
+    (``repro_wkv6_chunk`` in ``csrc/rwkv6_chunk.cu``); 0 lets it choose."""
     chunk = int(chunk)
     _check_chunk(r.shape[1], chunk)
     if r.device.type == "cpu":
@@ -88,7 +91,7 @@ def wkv6(r, k, v, w, u, initial_state=None, chunk: int = 64):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
             b, s, h, dk, dv, chunk, int(r.dtype == torch.bfloat16),
-            torch.cuda.current_stream(r.device).cuda_stream)
+            int(design), torch.cuda.current_stream(r.device).cuda_stream)
     build.check_launch(lib, code, "wkv6")
     wkv6.launches += 1
     return y, s_out

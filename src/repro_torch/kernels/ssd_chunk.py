@@ -67,8 +67,11 @@ def _check(x, dt, A, B, C, D) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def ssd(x, dt, A, B, C, D, initial_state=None, chunk: int = 64):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def ssd(x, dt, A, B, C, D, initial_state=None, chunk: int = 64,
+        design: int = 0):
+    """Kernel on CUDA tensors, plain version on CPU tensors. ``design``
+    (CUDA only, for timing) forces one of the kernel's block shapes
+    (``repro_ssd_chunk`` in ``csrc/ssd_chunk.cu``); 0 lets it choose."""
     chunk = int(chunk)
     _check_chunk(x.shape[1], chunk)
     if x.device.type == "cpu":
@@ -94,7 +97,7 @@ def ssd(x, dt, A, B, C, D, initial_state=None, chunk: int = 64):
             C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
             h_out.data_ptr(), b, s, h, p, n, chunk,
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
-            int(x.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), int(design),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(lib, code, "ssd")
     ssd.launches += 1

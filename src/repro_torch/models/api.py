@@ -25,7 +25,8 @@ from repro_torch.configs.base import ArchConfig
 class RunConfig:
     """Execution knobs (orthogonal to the architecture). Same fields as the
     reference so one (ArchConfig, RunConfig) pair keys both packages; the
-    fields that steer scan/remat/sharding are carried but not read yet."""
+    fields that steer scan/remat/sharding are carried but not read yet.
+    One default differs: ``seq_chunk``."""
 
     attn_impl: str = "kernel"     # kernel | plain | reference
     q_chunk: int = 512
@@ -37,7 +38,9 @@ class RunConfig:
     sharded_decode: bool = False
     fsdp_experts: bool = False
     moe_capacity_factor: float = 1.25
-    seq_chunk: int = 256
+    # the recurrences' chunk: 64 (the reference's default is 256) keeps
+    # |log w| * chunk within fp32's exp range and the kernels' limit
+    seq_chunk: int = 64
     data_axes: tuple = ("pod", "data")
     model_axis: str = "model"
     use_zero1: bool = False
