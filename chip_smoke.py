@@ -32,7 +32,7 @@ JSON line:
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
-then three paths, each driven with the launch counters zeroed just before
+then six paths, each driven with the launch counters zeroed just before
 it and read just after it:
 
   smollm-360m  model: full-width prefill forward (flash-attention kernel)
@@ -52,6 +52,22 @@ it and read just after it:
                flash-decode kernel), the Mamba matrices drawn at their
                per-layer fan-in; generate: Replica.generate twice on the
                same weights, equal greedy tokens
+  arctic-480b  the MoE family (128 experts, top-2, dense residual) at full
+               width, depth cut to what 80 GB holds (printed in each line):
+               model legs (bf16 at depth 2, fp32 at depth 1) on K2 and K1 at
+               head_dim 128 with 56/8 heads, the plain twin sharing the
+               kernel model's tensors; serve: the smollm traffic through the
+               same path into one replica at a time (max_scale 1), the probe
+               against a solo replica built after the backend is gone
+  qwen2-vl-72b the vlm family (M-RoPE, text-only positions) at full width:
+               model legs, bf16 at depth 8 and fp32 at depth 2
+  smollm-360m/container
+               the smollm traffic with LiveBackend(mode="container"): one
+               worker process per sandbox, the kernel library built into a
+               fresh build directory by the first (cold) creation and loaded
+               by the later (warm) ones; every request's tokens against an
+               in-process replica with its sandbox's seed, which runs (and
+               counts) the flash-decode kernel
 
 then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
 error, time, plain time, library time, bound; for WKV6 and SSD also the
@@ -72,6 +88,7 @@ they are applied.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -830,6 +847,32 @@ def phase_kernels() -> dict:
         check_flash("flash/zamba2-d80/fp32", 1, 256, 256, 32, 32, 80, f32,
                     True),
         check_flash("flash/d80-ragged", 2, 133, 133, 8, 4, 80, bf16, False),
+        # K1 and K2 at head_dim 128 on the MoE and vlm paths: arctic-480b's
+        # 56/8 heads (a group of 7: one query head a block, so each block
+        # reads its KV head's cache once per query head) and qwen2-vl-72b's
+        # 64/8 (a group of 8, one block a KV head). K1 at arctic's batcher
+        # step (8 slots, ragged) and at qwen2-vl's last decode step of the
+        # model phase (256 cached positions), K2 at the 256-token prefill.
+        # Beside arctic's K1, the same cache with a group of 8: what the
+        # group of 7 costs
+        check_decode("decode/arctic-g7-d128/bf16", 8, 1024, 56, 8, 128, bf16,
+                     ragged, timed=True),
+        check_decode("decode/arctic-g7-d128/fp32", 8, 1024, 56, 8, 128, f32,
+                     ragged, timed=True),
+        check_decode("decode/g8-d128-arctic-batch/bf16", 8, 1024, 64, 8, 128,
+                     bf16, ragged, timed=True),
+        check_decode("decode/qwen2vl-g8-d128/bf16", 1, 1024, 64, 8, 128, bf16,
+                     [256], timed=True),
+        check_decode("decode/qwen2vl-g8-d128/fp32", 1, 1024, 64, 8, 128, f32,
+                     [256], timed=True),
+        check_flash("flash/arctic-g7-d128/bf16", 1, 256, 256, 56, 8, 128,
+                    bf16, True, timed=True),
+        check_flash("flash/arctic-g7-d128/fp32", 1, 256, 256, 56, 8, 128, f32,
+                    True, timed=True),
+        check_flash("flash/qwen2vl-g8-d128/bf16", 1, 256, 256, 64, 8, 128,
+                    bf16, True, timed=True),
+        check_flash("flash/qwen2vl-g8-d128/fp32", 1, 256, 256, 64, 8, 128,
+                    f32, True, timed=True),
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
         check_wkv6("wkv6/main/bf16", 1, 256, 64, 64, 64, 64, bf16,
@@ -890,19 +933,24 @@ def phase_kernels() -> dict:
 # -- phase: model ---------------------------------------------------------------
 
 def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
-                      init_kw):
+                      init_kw, full_depth):
     """forward (on the kernels: flash attention, WKV6 or SSD) vs the same
     prompt fed token by token through decode_step (flash-decode where the
     model attends) vs the same weights on the plain versions; last-position
-    logits."""
+    logits. The plain twin is built on 'meta' and takes the kernel model's
+    tensors themselves (``assign=True``): at arctic-480b's width two copies
+    would not fit in the card's memory."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models.api import build_model
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, run_kernel, device="cuda")
     model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
                       **init_kw)
-    plain = build_model(cfg, run_plain, device="cuda")
-    plain.load_state_dict(model.state_dict())
+    plain = build_model(cfg, run_plain, device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    require(plain.embed.data_ptr() == model.embed.data_ptr(),
+            f"{label}: the plain twin does not share the weights")
     g = torch.Generator().manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (1, prompt_len), generator=g,
                          dtype=torch.int32).cuda()
@@ -911,6 +959,12 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
         fwd = model.forward({"tokens": toks})[:, -1].float()
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
+        # again, once the first call's library set-up (cuBLAS heuristics
+        # for each new product shape) is paid
+        t0 = time.perf_counter()
+        model.forward({"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_again_s = time.perf_counter() - t0
         fwd_plain = plain.forward({"tokens": toks})[:, -1].float()
         cache = model.init_cache(ShapeSpec("m", MAX_SEQ, 1, "decode"))
         cache_p = plain.init_cache(ShapeSpec("m", MAX_SEQ, 1, "decode"))
@@ -926,8 +980,8 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
                 cache_p, {"tokens": toks[:, t:t + 1], "cache_len": t})
         dec, dec_plain = dec.float(), dec_plain.float()
     rec = {
-        "leg": label, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-        "prompt_len": prompt_len, "tol": tol,
+        "leg": label, "n_layers": cfg.n_layers, "full_depth": full_depth,
+        "dtype": cfg.dtype, "prompt_len": prompt_len, "tol": tol,
         "logit_std": float(fwd_plain.std()),
         "forward_kernel_vs_decode_kernel": max_abs_err(fwd, dec),
         "forward_kernel_vs_forward_plain": max_abs_err(fwd, fwd_plain),
@@ -936,7 +990,9 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
         "argmax_agree": bool(fwd.argmax(-1).equal(dec.argmax(-1))
                              and fwd.argmax(-1).equal(fwd_plain.argmax(-1))),
         "forward_seconds": round(fwd_s, 4),
+        "forward_seconds_again": round(fwd_again_s, 4),
         "decode_ms_per_step": round(dec_s / prompt_len * 1e3, 4),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("model-leg", config=cfg.name, init=init_kw, **rec)
     for t in (fwd, dec, fwd_plain, dec_plain):
@@ -947,6 +1003,7 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
                 "decode_kernel_vs_decode_plain"):
         require(rec[key] <= tol, f"{label}: {key} = {rec[key]} > {tol}")
     del model, plain, cache, cache_p
+    gc.collect()
     torch.cuda.empty_cache()
     return rec
 
@@ -970,11 +1027,12 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
 FP32_TOL, BF16_TOL = 2e-3, 0.5
 
 
-def phase_model(cfg, fp32_depth, init_kw=None, **run_kw) -> None:
-    """The ``model`` legs of one configuration: fp32 at full width and cut
-    depth, bf16 at full width and depth. ``run_kw`` goes into both
-    RunConfigs (the recurrences' ``seq_chunk``), ``init_kw`` into
-    ``init_params``."""
+def phase_model(cfg, fp32_depth, bf16_depth=None, init_kw=None,
+                **run_kw) -> None:
+    """The ``model`` legs of one configuration, both at full width: fp32 at
+    ``fp32_depth`` layers, bf16 at ``bf16_depth`` (full depth when None).
+    ``run_kw`` goes into both RunConfigs (the recurrences' ``seq_chunk``),
+    ``init_kw`` into ``init_params``."""
     from dataclasses import replace
 
     from repro_torch.models.api import RunConfig
@@ -982,24 +1040,47 @@ def phase_model(cfg, fp32_depth, init_kw=None, **run_kw) -> None:
     init_kw = init_kw or {}
     run_kernel = RunConfig(attn_impl="kernel", **run_kw)
     run_plain = RunConfig(attn_impl="plain", **run_kw)
+    bf16_depth = bf16_depth or cfg.n_layers
     legs = [prefill_vs_decode(
         replace(cfg, n_layers=fp32_depth, dtype="float32"), run_kernel,
         run_plain, prompt_len=256, tol=FP32_TOL,
-        label=f"fp32-depth{fp32_depth}", init_kw=init_kw)]
-    legs.append(prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len=256,
-                                  tol=BF16_TOL, label="bf16-full",
-                                  init_kw=init_kw))
+        label=f"fp32-depth{fp32_depth}", init_kw=init_kw,
+        full_depth=cfg.n_layers)]
+    legs.append(prefill_vs_decode(
+        replace(cfg, n_layers=bf16_depth), run_kernel, run_plain,
+        prompt_len=256, tol=BF16_TOL,
+        label="bf16-full" if bf16_depth == cfg.n_layers
+        else f"bf16-depth{bf16_depth}",
+        init_kw=init_kw, full_depth=cfg.n_layers))
     emit("model", config=cfg.name, run=run_kw, init=init_kw, legs=legs)
 
 
 # -- phase: serve ---------------------------------------------------------------
 
+def host_syncs(fn) -> Optional[int]:
+    """Times ``fn`` makes the host wait for the device, as CUDA's sync debug
+    mode reports them (one warning each); None when it reported none (then
+    not measured: a decode step waits at least once, for its argmax)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+    return n or None
+
+
 def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     """Steady state of one replica with every slot busy: wall time per
-    lockstep decode step, and from ``torch.profiler`` the share of that wall
-    time during which the device ran a kernel, with the kernels that took
-    most of it. Device numbers are None when the profiler saw no device
-    activity (they are then not measured, not zero)."""
+    lockstep decode step, the host's waits for the device per step, and
+    from ``torch.profiler`` the share of that wall time during which the
+    device ran a kernel, with the kernels that took most of it. Device
+    numbers are None when the profiler saw no device activity (they are
+    then not measured, not zero)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ContinuousBatcher, Replica
@@ -1023,6 +1104,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
             cb.step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    syncs = host_syncs(lambda: [cb.step() for _ in range(2)])
     # kernel rows only: an operator's row repeats its kernels' device time
     rows = []
     for ev in prof.key_averages():
@@ -1034,6 +1116,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
            "ms_per_step": step_ms, "ms_per_step_traced": traced_ms,
            "tokens_per_s": MAX_SLOTS / step_ms * 1e3,
+           "host_syncs_per_step": None if syncs is None else syncs / 2,
            "device_busy_ms_per_step": None, "device_busy_share": None,
            "top_device_kernels": None}
     if busy_us > 0:
@@ -1047,26 +1130,108 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     return out
 
 
-def phase_serve(cfg, reused_probe: bool = False) -> None:
+def serve_prompts(cfg):
+    """The serve traffic: N_REQUESTS prompts of 16-64 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist()
+            for _ in range(N_REQUESTS)]
+
+
+def start_cluster(cfg, lb, **scaling):
+    """A 4-worker cluster with the live backend and one function "llm"
+    whose sandboxes take MAX_SLOTS requests at a time."""
+    from repro_torch.core import Cluster, Function, ScalingConfig
+    from repro_torch.simcore import Environment
+
+    env = Environment(seed=7)
+    cluster = Cluster(env, n_workers=4, runtime="firecracker",
+                      live_backend=lb, sandbox_concurrency=MAX_SLOTS)
+    cluster.start()
+    cluster.register_sync(Function(
+        name="llm", image_url=f"registry://{cfg.name}", port=9000,
+        scaling=ScalingConfig(target_concurrency=MAX_SLOTS, **scaling)))
+    return env, cluster
+
+
+def invoke_all(env, cluster, prompts, horizon=120.0):
+    """Send one request per prompt and run the simulation until all are
+    done or failed (or ``horizon`` simulated seconds pass)."""
+    from repro_torch.core.request import LiveRequest
+
+    invs = [cluster.invoke("llm", exec_time=0.05, request=LiveRequest(
+        prompt=p, max_new_tokens=MAX_NEW)) for p in prompts]
+    end = env.now + horizon
+    while env.now < end and not all(i.t_done > 0 or i.failed for i in invs):
+        env.run(until=env.now + 0.5)
+    return invs
+
+
+def check_served(cfg, invs, lb) -> None:
+    served = [i for i in invs if i.t_done > 0 and not i.failed]
+    require(len(served) == len(invs),
+            f"served {len(served)}/{len(invs)}: "
+            f"{[i.failure_reason for i in invs if i.failed]}; failed "
+            f"creations: {lb.create_errors}")
+    for i in invs:
+        toks = i.request.tokens
+        require(toks is not None and len(toks) == MAX_NEW,
+                f"request {i.inv_id}: tokens {toks}")
+        require(all(0 <= t < cfg.vocab for t in toks), "token id out of range")
+
+
+def wall_percentiles(invs) -> dict:
+    walls = sorted(i.request.wall_s for i in invs)
+    return {"invoke_wall_p50_s": walls[len(walls) // 2],
+            "invoke_wall_p99_s": walls[min(len(walls) - 1,
+                                           math.ceil(0.99 * len(walls)) - 1)]}
+
+
+def recording_backend():
+    """A LiveBackend class that remembers which sandbox took which request
+    and why a creation failed (the simulation does not report it)."""
+    from repro_torch.live import LiveBackend
+
+    class RecordingBackend(LiveBackend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.sandbox_of = {}
+            self.create_errors = []
+
+        def create_hook(self, sandbox):
+            try:
+                super().create_hook(sandbox)
+            except Exception as e:
+                self.create_errors.append(repr(e))
+                raise
+
+        def admit(self, sandbox_id, req):
+            ticket = super().admit(sandbox_id, req)
+            self.sandbox_of[id(req)] = sandbox_id
+            return ticket
+
+    return RecordingBackend
+
+
+def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
+                full_depth=None) -> dict:
     """16 requests through the orchestrator into live replicas. The probe
     (a request whose batched tokens must equal a solo replica's on its
     sandbox's weights) is the first request, or with ``reused_probe`` one
     more request sent after the 16 are done, which the batcher admits into
     a slot that has served or idled through earlier steps: a recurrent
-    model that leaked a slot's state into its next request fails it."""
-    import numpy as np
-
-    from repro_torch.core import Cluster, Function, ScalingConfig
-    from repro_torch.core.request import LiveRequest
+    model that leaked a slot's state into its next request fails it.
+    ``max_scale`` caps the function's sandboxes (one replica at a time
+    when a replica needs most of the card). Returns the line it prints."""
     from repro_torch.kernels import ops
-    from repro_torch.live import LiveBackend, LiveFunctionSpec
+    from repro_torch.live import LiveFunctionSpec
     from repro_torch.serving.engine import Replica
     from repro_torch.serving.exec_cache import ExecutableCache
-    from repro_torch.simcore import Environment
 
-    class CountingBackend(LiveBackend):
-        """Remembers which sandbox and slot took which request and how many
-        decode steps every sandbox's batcher took, teardowns included."""
+    class CountingBackend(recording_backend()):
+        """Also remembers which slot took which request and how many decode
+        steps every sandbox's batcher took, teardowns included."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
@@ -1100,55 +1265,31 @@ def phase_serve(cfg, reused_probe: bool = False) -> None:
     cache = ExecutableCache()
     spec = LiveFunctionSpec(cfg=cfg, max_seq=MAX_SEQ, max_slots=MAX_SLOTS)
     lb = CountingBackend(default_spec=spec, exec_cache=cache)
-    env = Environment(seed=7)
-    cluster = Cluster(env, n_workers=4, runtime="firecracker",
-                      live_backend=lb, sandbox_concurrency=MAX_SLOTS)
-    cluster.start()
-    cluster.register_sync(Function(
-        name="llm", image_url=f"registry://{cfg.name}", port=9000,
-        scaling=ScalingConfig(target_concurrency=MAX_SLOTS)))
-
-    def run_until_done(invs, horizon=120.0):
-        end = env.now + horizon
-        while env.now < end and not all(i.t_done > 0 or i.failed
-                                        for i in invs):
-            env.run(until=env.now + 0.5)
-
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist()
-               for _ in range(N_REQUESTS)]
+    scaling = {} if max_scale is None else {"max_scale": max_scale}
+    env, cluster = start_cluster(cfg, lb, **scaling)
+    prompts = serve_prompts(cfg)
     before = ops.launch_counts()
     warmed_before = cache.compiled_executables()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    invs = [cluster.invoke("llm", exec_time=0.05, request=LiveRequest(
-        prompt=p, max_new_tokens=MAX_NEW)) for p in prompts]
-    run_until_done(invs)
+    invs = invoke_all(env, cluster, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    served = [i for i in invs if i.t_done > 0 and not i.failed]
-    require(len(served) == N_REQUESTS,
-            f"served {len(served)}/{N_REQUESTS}: "
-            f"{[i.failure_reason for i in invs if i.failed]}")
-    for i in invs:
-        toks = i.request.tokens
-        require(toks is not None and len(toks) == MAX_NEW,
-                f"request {i.inv_id}: tokens {toks}")
-        require(all(0 <= t < cfg.vocab for t in toks), "token id out of range")
+    check_served(cfg, invs, lb)
     require(lb.batched_invokes > 0, "no invocation shared a decode step")
     steps = lb.decode_steps()
     warmed = cache.compiled_executables() - warmed_before
     moved = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    if cfg.family == "dense":
+    if cfg.family == "ssm":
+        # the recurrent decode step is plain arithmetic: no kernel
+        require(not any(moved.values()),
+                f"kernel launches on the recurrent decode path: {moved}")
+    else:
         require(moved["decode_attention"] == (steps + warmed) * cfg.n_layers,
                 f"decode kernel launches {moved['decode_attention']} != "
                 f"(steps {steps} + warm-up steps {warmed}) x layers "
                 f"{cfg.n_layers}")
-    else:
-        # the recurrent decode step is plain arithmetic: no kernel
-        require(not any(moved.values()),
-                f"kernel launches on the recurrent decode path: {moved}")
     reuse_count = sum(1 for i in invs
                       if lb.admitted[id(i.request)]["steps_before"] > 0)
     invoke_s, tokens_total = lb.invoke_seconds_total, lb.tokens_total
@@ -1156,16 +1297,13 @@ def phase_serve(cfg, reused_probe: bool = False) -> None:
     probe, probe_prompt = invs[0], prompts[0]
     if reused_probe:
         probe_prompt = prompts[N_REQUESTS // 2]
-        probe = cluster.invoke("llm", exec_time=0.05, request=LiveRequest(
-            prompt=probe_prompt, max_new_tokens=MAX_NEW))
-        run_until_done([probe])
+        probe = invoke_all(env, cluster, [probe_prompt])[0]
         require(probe.t_done > 0 and not probe.failed,
                 f"probe request failed: {probe.failure_reason}")
         where = lb.admitted[id(probe.request)]
         require(where["steps_before"] > 0,
                 f"the probe's slot had run no decode step before: {where}")
     where = lb.admitted[id(probe.request)]
-    walls = sorted(i.request.wall_s for i in invs)
     colds = [r["wall_s"] for r in lb.start_log if r["cold"]]
     warms = [r["wall_s"] for r in lb.start_log if not r["cold"]]
     stats = lb.cache_stats()
@@ -1173,6 +1311,7 @@ def phase_serve(cfg, reused_probe: bool = False) -> None:
     peak = torch.cuda.max_memory_allocated()
     lb.close()
     require(lb.replicas_live == 0, "replicas left after close()")
+    gc.collect()
     torch.cuda.empty_cache()
 
     # the probe against a fresh replica with its sandbox's seed: the same
@@ -1188,21 +1327,106 @@ def phase_serve(cfg, reused_probe: bool = False) -> None:
     torch.cuda.empty_cache()
 
     profile = profile_decode_steps(cfg, cache, prompts)
-    emit("serve", config=cfg.name, requests=N_REQUESTS, served=len(served),
-         max_new_tokens=MAX_NEW, prompt_lens=[len(p) for p in prompts],
-         replicas_created=replicas_created,
+    rec = dict(
+        config=cfg.name, n_layers=cfg.n_layers,
+        full_depth=full_depth or cfg.n_layers, max_scale=max_scale,
+        requests=N_REQUESTS, served=len(invs), max_new_tokens=MAX_NEW,
+        prompt_lens=[len(p) for p in prompts],
+        replicas_created=replicas_created,
+        create_cold_s=colds, create_warm_s=warms, **wall_percentiles(invs),
+        invoke_seconds_total=invoke_s, tokens_total=tokens_total,
+        tokens_per_s=tokens_total / wall, wall_s=wall, decode_steps=steps,
+        warm_steps=warmed, ms_per_decode_step=invoke_s / max(steps, 1) * 1e3,
+        batched_invokes=lb.batched_invokes, kernel_launches=moved,
+        teardowns=lb.teardowns, exec_cache=stats,
+        admitted_after_steps=reuse_count,
+        probe={"reused": reused_probe, **where, "tokens_equal_solo": True},
+        steady_state=profile, peak_memory_bytes=peak)
+    emit("serve", **rec)
+    return rec
+
+
+def phase_container(cfg, process_serve: dict) -> None:
+    """The serve traffic with one worker process per sandbox
+    (``LiveFunctionSpec(mode="container")``), the kernel library built by
+    the first creation into a fresh build directory inside the checkout
+    and loaded by the later ones. The parent cannot read the children's
+    launch counters (the protocol carries tokens only), so each request's
+    tokens are held against an in-process replica with its sandbox's seed,
+    batched likewise, whose flash-decode launches are counted here."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.live import LiveFunctionSpec
+    from repro_torch.serving.engine import ContinuousBatcher, Replica
+    from repro_torch.serving.exec_cache import ExecutableCache
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    build_dir = tempfile.mkdtemp(prefix="container-",
+                                 dir=os.path.join(ROOT, "build"))
+    spec = LiveFunctionSpec(cfg=cfg, mode="container", max_seq=MAX_SEQ,
+                            max_slots=MAX_SLOTS)
+    lb = recording_backend()(default_spec=spec, exec_cache=ExecutableCache(),
+                             compile_cache_dir=build_dir)
+    try:
+        env, cluster = start_cluster(cfg, lb)
+        prompts = serve_prompts(cfg)
+        t0 = time.perf_counter()
+        invs = invoke_all(env, cluster, prompts)
+        wall = time.perf_counter() - t0
+        check_served(cfg, invs, lb)
+    finally:
+        lb.close()
+        shutil.rmtree(build_dir, ignore_errors=True)
+    require(lb.replicas_live == 0, "container workers left after close()")
+    colds = [r["wall_s"] for r in lb.start_log if r["cold"]]
+    warms = [r["wall_s"] for r in lb.start_log if not r["cold"]]
+    require(all(r["mode"] == "container" for r in lb.start_log),
+            f"not container creations: {lb.start_log}")
+    require(colds and warms, f"needs a cold and a warm creation: "
+            f"{lb.start_log}")
+
+    # every request's tokens against an in-process replica with its
+    # sandbox's seed, its requests batched in waves of MAX_SLOTS
+    by_sandbox = {}
+    for inv, prompt in zip(invs, prompts):
+        by_sandbox.setdefault(lb.sandbox_of[id(inv.request)], []).append(
+            (prompt, inv.request.tokens))
+    before = ops.launch_counts()
+    steps = 0
+    for sid, reqs in sorted(by_sandbox.items()):
+        rep = Replica(cfg, rng_seed=sid, max_seq=MAX_SEQ,
+                      exec_cache=ExecutableCache())
+        cb = ContinuousBatcher(rep, max_slots=MAX_SLOTS)
+        for w in range(0, len(reqs), MAX_SLOTS):
+            wave = reqs[w:w + MAX_SLOTS]
+            rids = [cb.add_request(p, max_new=MAX_NEW) for p, _ in wave]
+            cb.run_until_done()
+            for rid, (_, toks) in zip(rids, wave):
+                require(cb.finished[rid] == toks,
+                        f"sandbox {sid}: container tokens {toks} != "
+                        f"in-process {cb.finished[rid]}")
+        steps += cb.steps
+        del rep, cb
+    moved = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    require(moved["decode_attention"] == steps * cfg.n_layers,
+            f"in-process decode kernel launches {moved['decode_attention']} "
+            f"!= steps {steps} x layers {cfg.n_layers}")
+    emit("container", config=cfg.name, requests=N_REQUESTS,
+         served=len(invs), replicas_created=len(lb.start_log),
          create_cold_s=colds, create_warm_s=warms,
-         invoke_wall_p50_s=walls[len(walls) // 2],
-         invoke_wall_p99_s=walls[min(len(walls) - 1,
-                                     math.ceil(0.99 * len(walls)) - 1)],
-         invoke_seconds_total=invoke_s, tokens_total=tokens_total,
-         tokens_per_s=tokens_total / wall, wall_s=wall, decode_steps=steps,
-         warm_steps=warmed, ms_per_decode_step=invoke_s / max(steps, 1) * 1e3,
-         batched_invokes=lb.batched_invokes, kernel_launches=moved,
-         teardowns=lb.teardowns, exec_cache=stats,
-         admitted_after_steps=reuse_count,
-         probe={"reused": reused_probe, **where, "tokens_equal_solo": True},
-         steady_state=profile, peak_memory_bytes=peak)
+         process_mode_create_cold_s=process_serve["create_cold_s"],
+         process_mode_create_warm_s=process_serve["create_warm_s"],
+         **wall_percentiles(invs), invoke_seconds_total=lb.invoke_seconds_total,
+         tokens_total=lb.tokens_total, wall_s=wall,
+         tokens_per_s=lb.tokens_total / wall,
+         batched_invokes=lb.batched_invokes, teardowns=lb.teardowns,
+         sandboxes={str(k): len(v) for k, v in sorted(by_sandbox.items())},
+         tokens_equal_in_process=True, in_process_decode_steps=steps,
+         in_process_kernel_launches=moved,
+         child_kernel_launches="not visible to the parent: the protocol "
+                               "carries tokens only")
 
 
 def phase_generate(cfg) -> None:
@@ -1252,31 +1476,49 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
 # the kernels each path must launch
 PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "rwkv6-7b": ("wkv6",),
-                "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd")}
+                "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd"),
+                "arctic-480b": ("decode_attention", "flash_attention"),
+                "qwen2-vl-72b": ("decode_attention", "flash_attention"),
+                # the parent's in-process replicas that check the children
+                "smollm-360m/container": ("decode_attention",)}
 
 
-def run_path(name) -> dict:
+def run_path(name, serve_records) -> dict:
     """One configuration's path, with the launch counters zeroed just
     before it and read just after it. Depth is full except where a leg says
-    otherwise; weights are drawn from the seed."""
+    otherwise; weights are drawn from the seed. A serve phase's line goes
+    into ``serve_records`` under its configuration's name."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    cfg = get_config(name)
+    cfg = get_config(name.split("/")[0])
     ops.reset_launch_counts()
     if name == "smollm-360m":
         phase_model(cfg, fp32_depth=4)
-        phase_serve(cfg)
+        serve_records[name] = phase_serve(cfg)
     elif name == "rwkv6-7b":
         phase_model(cfg, fp32_depth=4, seq_chunk=64)
         phase_serve(cfg, reused_probe=True)
-    else:
+    elif name == "zamba2-2.7b":
         # fp32 depth 12: two super-blocks, so the shared attention runs at
         # two invocation points with two KV caches (depth is a multiple of
         # attn_every = 6)
         phase_model(cfg, fp32_depth=12, init_kw={"layer_fan_in": True},
                     seq_chunk=64)
         phase_generate(cfg)
+    elif name == "arctic-480b":
+        # a layer is ~27.2 GB in bf16 (its 128 experts 26.8): depth 2 in
+        # bf16 and 1 in fp32 is what 80 GB holds; serve keeps one replica
+        # alive at a time
+        phase_model(cfg, fp32_depth=1, bf16_depth=2)
+        phase_serve(replace(cfg, n_layers=2), max_scale=1,
+                    full_depth=cfg.n_layers)
+    elif name == "qwen2-vl-72b":
+        phase_model(cfg, fp32_depth=2, bf16_depth=8)
+    else:
+        phase_container(cfg, serve_records["smollm-360m"])
     counts = ops.launch_counts()
     for k in PATH_KERNELS[name]:
         require(counts[k] > 0, f"{name}: the path never launched {k}")
@@ -1297,7 +1539,8 @@ def main() -> int:
 
     # each path starts with the counters at 0 and is read when it ends, so
     # the comparisons above do not count
-    paths = {name: run_path(name) for name in PATH_KERNELS}
+    serve_records = {}
+    paths = {name: run_path(name, serve_records) for name in PATH_KERNELS}
     emit("launches", paths=paths)
 
     kernels = []

@@ -70,6 +70,15 @@ def source_hash(flags=()) -> str:
     return h.hexdigest()[:16]
 
 
+def is_built(root=None) -> bool:
+    """Whether the library of the current sources is already in ``root``
+    (default: ``build_root()``), so that a process loading from there
+    builds nothing. Container mode reads it to tell a cold creation from a
+    warm one."""
+    root = build_root() if root is None else Path(root)
+    return (root / f"kernels-{source_hash()}" / LIB_NAME).exists()
+
+
 def build(verbose_ptxas: bool = False) -> Path:
     """Compile and link the library if its hash directory does not hold it
     yet; returns the library's path. Raises ``KernelBuildError`` with

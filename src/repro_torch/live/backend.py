@@ -8,8 +8,13 @@ Execution mode is selected per function by ``LiveFunctionSpec.mode``:
     library, the library handles and the warmed decode signature come from
     the process-global ``ExecutableCache`` — the live analogue of a snapshot
     restore against pre-created state.
-  * ``container`` — an isolated subprocess worker per sandbox. Not ported
-    yet: it raises ``NotImplementedError`` (ROADMAP: container mode).
+  * ``container`` — the sandbox is an isolated subprocess worker
+    (``live/container.py``) on the backend's device: spawn + import +
+    replica build + one warm decode step, seconds — the containerd
+    analogue. Its warm state cannot be shared in-process; the kernel build
+    directory ``compile_cache_dir`` plays the shared-cache role across
+    worker processes instead (the first creation builds the library there,
+    later ones load it).
 
 Wiring into the DES (all hooks are no-ops unless a backend is installed —
 the default path stays bit-identical):
@@ -110,8 +115,12 @@ class LiveBackend:
 
     def __init__(self, specs: Optional[Dict[str, LiveFunctionSpec]] = None,
                  default_spec: Optional[LiveFunctionSpec] = None,
-                 exec_cache=None, device: DeviceLike = None):
-        """``device=None`` means the GPU; without one this raises."""
+                 exec_cache=None, compile_cache_dir: Optional[str] = None,
+                 device: DeviceLike = None):
+        """``device=None`` means the GPU; without one this raises.
+        ``compile_cache_dir`` is container mode's kernel build directory,
+        shared by its worker processes (None: the default build
+        directory)."""
         from repro_torch.serving.exec_cache import default_cache
 
         self.specs = dict(specs or {})
@@ -119,6 +128,7 @@ class LiveBackend:
         self.device = resolve_device(device)
         self.exec_cache = exec_cache if exec_cache is not None \
             else default_cache()
+        self.compile_cache_dir = compile_cache_dir
         self.sandboxes: Dict[int, object] = {}       # sid -> runtime
         # results that outlive their runtime (graceful teardown drains
         # in-slot requests; their tickets must still collect)
@@ -154,25 +164,29 @@ class LiveBackend:
         device is synchronised before the clock is read, or a creation
         whose work is still queued would look free."""
         spec = self.spec_for(sandbox.function_name)
-        if spec.mode == "container":
-            raise NotImplementedError(
-                "container mode (subprocess workers) is not ported yet: "
-                "ROADMAP, container mode of live/")
         sync(self.device)
         t0 = time.perf_counter()
-        misses0 = self.exec_cache.misses
-        rt = _ProcessSandbox(spec, self.exec_cache, seed=sandbox.sandbox_id,
-                             device=self.device)
-        # bill the first-step costs (kernel build and load, library handles,
-        # allocator growth) to creation, not to the first invoke: a cold
-        # cache pays them here; a warm one returns at once
-        shape = ShapeSpec("live", spec.max_seq, spec.max_slots, "decode")
-        warm_s = self.exec_cache.warm(spec.cfg, shape,
-                                      run_cfg=rt.replica.run_cfg,
-                                      model=rt.replica.model)
-        # cold = this creation built the entry OR warmed a new signature
-        cold = self.exec_cache.misses > misses0 or warm_s > 0.0
-        sync(self.device)
+        if spec.mode == "container":
+            from repro_torch.live.container import ContainerSandbox
+
+            rt = ContainerSandbox(spec, cache_dir=self.compile_cache_dir,
+                                  seed=sandbox.sandbox_id,
+                                  device=str(self.device))
+            cold = rt.cold
+        else:
+            misses0 = self.exec_cache.misses
+            rt = _ProcessSandbox(spec, self.exec_cache,
+                                 seed=sandbox.sandbox_id, device=self.device)
+            # bill the first-step costs (kernel build and load, library
+            # handles, allocator growth) to creation, not to the first
+            # invoke: a cold cache pays them here; a warm one returns at once
+            shape = ShapeSpec("live", spec.max_seq, spec.max_slots, "decode")
+            warm_s = self.exec_cache.warm(spec.cfg, shape,
+                                          run_cfg=rt.replica.run_cfg,
+                                          model=rt.replica.model)
+            # cold = this creation built the entry OR warmed a new signature
+            cold = self.exec_cache.misses > misses0 or warm_s > 0.0
+            sync(self.device)
         self.sandboxes[sandbox.sandbox_id] = rt
         self._failed_sids.discard(sandbox.sandbox_id)
         self.start_log.append({

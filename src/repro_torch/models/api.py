@@ -8,9 +8,9 @@ surface the serving layer uses:
     decode_step(cache, batch) -> (logits, cache)
     init_cache(shape)       -> zeroed KV cache for decode shapes
 
-The dense (``DecoderLM``), ssm (``RWKV6Model``) and hybrid
-(``Zamba2Model``) families are ported; the others raise
-``NotImplementedError`` naming their ROADMAP item.
+The dense, moe and vlm (``DecoderLM``), ssm (``RWKV6Model``) and hybrid
+(``Zamba2Model``) families are ported; audio raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -49,8 +49,6 @@ class RunConfig:
 
 
 _PENDING = {
-    "moe": "A10 (models/moe.py)",
-    "vlm": "A10 (VLM leg, apply_mrope)",
     "audio": "A11 (models/whisper.py)",
 }
 
@@ -58,7 +56,7 @@ _PENDING = {
 def build_model(cfg: ArchConfig, run_cfg: Optional[RunConfig] = None,
                 device: DeviceLike = None):
     run_cfg = run_cfg or RunConfig()
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, run_cfg, device=device)
     if cfg.family == "ssm":

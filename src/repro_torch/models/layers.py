@@ -90,6 +90,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def mrope_tables(positions: torch.Tensor, head_dim: int,
+                 sections: Sequence[int], theta: float = 10000.0):
+    """``rope_tables`` for multimodal RoPE (Qwen2-VL): the head_dim/2
+    frequencies are split into (t, h, w) sections, each turned by its own
+    position stream. positions: (B, S, 3) int."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)  # (D/2,)
+    lead = positions.shape[:-1]
+    pos = torch.cat([positions[..., i, None].expand(*lead, n)
+                     for i, n in enumerate(sections)], dim=-1)    # (B,S,D/2)
+    angles = pos.to(torch.float32) * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE. x: (B, S, H, D); positions: (B, S, 3) int; angles
+    in fp32, output in x's dtype."""
+    return rotate(x, *mrope_tables(positions, x.shape[-1], sections, theta))
+
+
 # -- attention ----------------------------------------------------------------
 
 def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:

@@ -1,0 +1,172 @@
+"""Mixture-of-Experts FFN (kimi-k2, arctic): the single-device path.
+
+Counterpart of ``repro.models.moe``. Same parameter keys and stacked shapes
+(``router`` (L, d, E) in fp32; ``e_gate``/``e_up`` (L, E, d, fe),
+``e_down`` (L, E, fe, d); arctic's dense residual ``r_gate``/``r_up``/
+``r_down``), same init scales, and ``_local_moe`` step for step:
+
+  1. fp32 router logits (TF32 off whatever the global switch says), softmax,
+     top-k with ties to the lower expert index (``lax.top_k``'s order),
+     renormalised top-k probabilities;
+  2. the ``(T·k,)`` assignments stably sorted by expert and cut to the
+     capacity ``C = min(max(int(T·k / n_shards · moe_capacity_factor), k),
+     T·k)``: overflow drops, as in the reference;
+  3. the grouped GEMM: ``lax.ragged_dot`` (an XLA primitive, not a Pallas
+     kernel) becomes a loop of ``torch.matmul`` over the contiguous groups
+     of the sorted buffer. Reading the group sizes is one host
+     synchronisation per call (per MoE layer);
+  4. ``silu(gate)·up`` in fp32 cast back to the model dtype, the down
+     projection, the renormalised weights, an fp32 ``index_add_`` back to
+     the token positions.
+
+One device only: ``moe_ffn`` runs the local path with ``n_shards = 1``; the
+expert-parallel ``shard_map``/``psum``/FSDP branch is not ported yet.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.compat import torch_dtype
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def moe_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Per-layer shapes and dtypes of the MoE keys (the model stacks them
+    on a leading L axis, as the reference's ``moe_param_specs``)."""
+    e = cfg.moe
+    d, fe = cfg.d_model, e.d_ff_expert
+    dt = torch_dtype(cfg.dtype)
+    out = {
+        "router": ((d, e.n_experts), torch.float32),
+        "e_gate": ((e.n_experts, d, fe), dt),
+        "e_up": ((e.n_experts, d, fe), dt),
+        "e_down": ((e.n_experts, fe, d), dt),
+    }
+    if e.dense_residual_ff:
+        fr = e.dense_residual_ff
+        out.update({"r_gate": ((d, fr), dt), "r_up": ((d, fr), dt),
+                    "r_down": ((fr, d), dt)})
+    return out
+
+
+@torch.no_grad()
+def init_moe_param(generator: torch.Generator, key: str,
+                   p: torch.Tensor) -> None:
+    """Fill the stacked MoE parameter ``key`` in place, one matrix — a
+    (layer, expert) slice of the experts, a layer of the others — at a
+    time, in index order from the one generator: a whole fp32 draw of
+    arctic's experts would not fit beside them on the card. Scales are the
+    reference's: the router N(0, 0.02), every other matrix N(0,
+    1/sqrt(fan_in)) with its own fan-in ``shape[-2]``."""
+    scale = 0.02 if key == "router" else 1.0 / math.sqrt(p.shape[-2])
+    for idx in itertools.product(*(range(n) for n in p.shape[:-2])):
+        p[idx].copy_(torch.randn(p.shape[-2:], generator=generator,
+                                 device=p.device,
+                                 dtype=torch.float32).mul_(scale))
+
+
+def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full fp32: under TF32 a few near-ties of the router would
+    pick other experts than the reference's fp32 logits do."""
+    prec = torch.get_float32_matmul_precision()
+    if prec == "highest":
+        return a @ b
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return a @ b
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+@dataclass
+class Routing:
+    """What the router decided for T tokens (C kept assignment rows)."""
+
+    top_p: torch.Tensor         # (T, k) fp32, renormalised
+    top_e: torch.Tensor         # (T, k) expert ids
+    sel_tok: torch.Tensor       # (C,) token of each row, sorted by expert
+    sel_e: torch.Tensor         # (C,) local expert; n_local = not this shard's
+    sel_p: torch.Tensor         # (C,) fp32 weight; 0 where not this shard's
+    group_sizes: torch.Tensor   # (n_local,) rows of each local expert
+
+
+def route(cfg: ArchConfig, run_cfg, router: torch.Tensor, x: torch.Tensor,
+          *, n_local: int, n_shards: int, shard_id: int) -> Routing:
+    """Steps 1-2 of ``_local_moe``: router top-k and capacity-bounded
+    packing of the assignments that target this shard's ``n_local``
+    experts. x: (T, D)."""
+    k = cfg.moe.top_k
+    T = x.shape[0]
+    logits = _matmul_fp32(x.float(), router)
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort keeps equal probabilities in index order
+    top_p, top_e = (t[:, :k] for t in torch.sort(probs, dim=-1,
+                                                  descending=True,
+                                                  stable=True))
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(-1)                             # (T*k,)
+    flat_p = top_p.reshape(-1)
+    flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    first = shard_id * n_local
+    mine = (flat_e >= first) & (flat_e < first + n_local)
+    local_e = torch.where(mine, flat_e - first,
+                          torch.full_like(flat_e, n_local))
+    C = max(int(T * k / n_shards * run_cfg.moe_capacity_factor), k)
+    C = min(C, T * k)
+    sel = torch.argsort(local_e, stable=True)[:C]          # (C,)
+    sel_e = local_e[sel]
+    sel_p = torch.where(sel_e < n_local, flat_p[sel],
+                        torch.zeros_like(flat_p[sel]))
+    # bincount's counts without its host sync (on a CUDA tensor
+    # torch.bincount reads the maximum back to size its output)
+    group_sizes = torch.zeros(n_local + 1, dtype=torch.long,
+                              device=x.device).index_add_(
+        0, sel_e, torch.ones_like(sel_e))[:n_local]
+    return Routing(top_p=top_p, top_e=top_e, sel_tok=flat_tok[sel],
+                   sel_e=sel_e, sel_p=sel_p, group_sizes=group_sizes)
+
+
+def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
+               n_shards: int, shard_id: int) -> torch.Tensor:
+    """Per-device MoE computation. x: (T, D) tokens; w experts: (E_local,
+    D, Fe). Returns this shard's partial output (T, D) in fp32."""
+    dt = torch_dtype(cfg.dtype)
+    T, D = x.shape
+    r = route(cfg, run_cfg, w["router"], x, n_local=w["e_gate"].shape[0],
+              n_shards=n_shards, shard_id=shard_id)
+    xin = x[r.sel_tok].to(dt)                              # (C, D)
+    # the grouped GEMM over the contiguous expert groups of the sorted rows;
+    # rows past the last group (not this shard's) stay 0 as in ragged_dot
+    out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)
+    start = 0
+    for e, n in enumerate(r.group_sizes.tolist()):         # host sync
+        if n == 0:
+            continue
+        rows = xin[start:start + n]
+        g = torch.matmul(rows, w["e_gate"][e])
+        u = torch.matmul(rows, w["e_up"][e])
+        h = (F.silu(g.float()) * u.float()).to(dt)
+        out[start:start + n] = torch.matmul(h, w["e_down"][e])
+        start += n
+    out = out.float() * r.sel_p[:, None]
+    return torch.zeros((T, D), dtype=torch.float32,
+                       device=x.device).index_add_(0, r.sel_tok, out)
+
+
+def moe_ffn(cfg: ArchConfig, run_cfg, w, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): the experts' weighted sum plus, where the
+    config has one (arctic), the dense residual swiglu branch."""
+    B, S, D = x.shape
+    y = _local_moe(cfg, run_cfg, w, x.reshape(B * S, D), n_shards=1,
+                   shard_id=0).reshape(B, S, D).to(x.dtype)
+    if cfg.moe.dense_residual_ff:
+        y = y + L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"])
+    return y

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, dense family (serving paths).
+"""Decoder-only transformer LM: the dense, moe and vlm families (serving
+paths).
 
 Counterpart of ``repro.models.transformer.DecoderLM``. Differences that come
 with PyTorch's idiom:
@@ -17,8 +18,12 @@ with PyTorch's idiom:
     lengths, ``index_copy_`` for a scalar length) where the reference
     returns a new array; ``decode_step`` still returns ``(logits, cache)``
     and the returned cache is the one passed in;
-  * serving only: no ``loss_fn``, no MoE, no sharded decode yet. Call it
-    under ``torch.inference_mode()``.
+  * MoE layers (``cfg.moe``) run the single-device ``models/moe.py`` path
+    in place of the dense MLP; the vlm family rotates by M-RoPE with the
+    text-only position stream ``(pos, pos, pos)``, as the reference does
+    (its vision front end is a stub);
+  * serving only: no ``loss_fn``, no expert-parallel or sharded decode yet.
+    Call it under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.api import RunConfig
+from repro_torch.models.moe import init_moe_param, moe_ffn, moe_param_shapes
 
 
 class DecoderLM(nn.Module):
@@ -41,9 +47,6 @@ class DecoderLM(nn.Module):
         the GPU; ``"meta"`` gives a storage-free skeleton); fill them with
         ``init_params`` or ``load_state_dict``."""
         super().__init__()
-        if cfg.moe is not None or cfg.mrope_sections is not None:
-            raise NotImplementedError(
-                "MoE and M-RoPE legs are not ported yet (ROADMAP item A10)")
         self.cfg = cfg
         self.run = run_cfg or RunConfig()
         dev = torch.device(device) if str(device) == "meta" \
@@ -85,7 +88,9 @@ class DecoderLM(nn.Module):
         if cfg.qk_norm:
             shapes["q_norm"] = ((hd,), f32)
             shapes["k_norm"] = ((hd,), f32)
-        if cfg.mlp == "swiglu":
+        if cfg.moe is not None:
+            shapes.update(moe_param_shapes(cfg))
+        elif cfg.mlp == "swiglu":
             shapes.update({"w_gate": ((d, f), dt), "w_up": ((d, f), dt),
                            "w_down": ((f, d), dt)})
         else:
@@ -98,9 +103,14 @@ class DecoderLM(nn.Module):
         """Fill the parameters in place from ``generator`` (which must live
         on the parameters' device). Scales are the reference's: norms 1,
         biases 0, embeddings N(0, 0.02), every other matrix
-        N(0, 1/sqrt(fan_in)) with ``fan_in`` read off the stacked shape."""
+        N(0, 1/sqrt(fan_in)) with ``fan_in`` read off the stacked shape;
+        the MoE keys follow ``moe.init_moe_param`` (their own fan-in, drawn
+        a matrix at a time)."""
+        moe_keys = moe_param_shapes(self.cfg) if self.cfg.moe else {}
         for k, p in self.layers.items():
-            if k.startswith("ln") or k.endswith("norm"):
+            if k in moe_keys:
+                init_moe_param(generator, k, p)
+            elif k.startswith("ln") or k.endswith("norm"):
                 p.fill_(1.0)
             elif k.startswith("b_"):
                 p.zero_()
@@ -136,7 +146,10 @@ class DecoderLM(nn.Module):
                 offset = offset[:, None]           # per-slot offsets (B, 1)
         pos = torch.arange(s, dtype=torch.int32,
                            device=tokens.device)[None, :] + offset
-        return pos.expand(b, s)
+        pos = pos.expand(b, s)
+        if self.cfg.mrope_sections is not None:
+            return torch.stack([pos, pos, pos], dim=-1)   # text-only stream
+        return pos
 
     def _norm(self, x, weight):
         if self.cfg.norm == "rmsnorm":
@@ -178,6 +191,8 @@ class DecoderLM(nn.Module):
 
     def _mlp(self, w, x):
         h = self._norm(x, w["ln2"])
+        if self.cfg.moe is not None:
+            return moe_ffn(self.cfg, self.run, w, h)
         if self.cfg.mlp == "swiglu":
             return L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
         return L.gelu_mlp(h, w["w_up"], w["b_up"], w["w_down"], w["b_down"])
@@ -185,8 +200,12 @@ class DecoderLM(nn.Module):
     def _stack(self, x, pos, cache=None, cache_len=None):
         # the rotary tables depend on the positions only: once per step, not
         # once per layer and tensor as the reference's scan body does
-        rope = L.rope_tables(pos, self.cfg.resolved_head_dim,
-                             self.cfg.rope_theta)
+        cfg = self.cfg
+        if cfg.mrope_sections is not None:
+            rope = L.mrope_tables(pos, cfg.resolved_head_dim,
+                                  cfg.mrope_sections, cfg.rope_theta)
+        else:
+            rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
         write_at = attn_len = None
         if cache is not None:
             # new K/V go to position cache_len, attention sees cache_len + 1

@@ -19,7 +19,9 @@ def _tree(name, **kw):
     return params, jax_tree_to_numpy(params), ct
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-32b", "granite-34b"])
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-32b", "granite-34b",
+                                  "arctic-480b", "kimi-k2-1t-a32b",
+                                  "qwen2-vl-72b"])
 def test_round_trip_keys_shapes_values(name):
     params, tree, ct = _tree(name)
     model = convert.load_params(build_model(ct, device="cpu"), tree)
@@ -61,6 +63,27 @@ def test_bf16_leaves_travel_as_float32_exactly():
     np.testing.assert_array_equal(back["embed"], tree16["embed"])
     np.testing.assert_array_equal(back["layers"]["w_down"],
                                   tree16["layers"]["w_down"])
+
+
+def test_bf16_moe_tree_keeps_its_fp32_router():
+    """A bf16 arctic tree from the reference's init loads unchanged: the
+    router stays fp32 with the reference's values bit for bit, the experts
+    and the dense residual narrow back to their bf16 bits."""
+    from dataclasses import replace
+    cj, ct = reduced_pair("arctic-480b")
+    params16 = jbuild(replace(cj, dtype="bfloat16"), JRun()).init_params(
+        jax.random.PRNGKey(1))
+    assert params16["layers"]["router"].dtype == np.float32
+    tree16 = jax_tree_to_numpy(params16)
+    model = convert.load_params(
+        build_model(replace(ct, dtype="bfloat16"), device="cpu"), tree16)
+    sd = model.state_dict()
+    assert sd["layers.router"].dtype == torch.float32
+    for k in ("e_gate", "e_up", "e_down", "r_gate", "r_up", "r_down"):
+        assert sd[f"layers.{k}"].dtype == torch.bfloat16, k
+    back = convert.flatten_tree(convert.to_numpy_tree(sd))
+    for k, v in convert.flatten_tree(tree16).items():
+        np.testing.assert_array_equal(back[k], v)
 
 
 def test_mismatches_raise():

@@ -91,6 +91,28 @@ def test_apply_rope_split_half_with_per_slot_offsets(theta):
     _close(same, x, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("d,sections,theta", [(128, (16, 24, 24), 1e6),
+                                              (16, (4, 2, 2), 1e4)])
+def test_apply_mrope_three_streams(d, sections, theta):
+    """M-RoPE with three distinct (t, h, w) position streams, qwen2-vl's
+    sections at full and reduced head_dim; with the three streams equal it
+    is plain RoPE."""
+    x = _x(2, 5, 3, d)
+    pos = np.random.default_rng(1).integers(0, 700, (2, 5, 3)).astype(
+        np.int32)
+    _close(TL.apply_mrope(to_torch(x), to_torch(pos), sections, theta),
+           JL.apply_mrope(to_jax(x), to_jax(pos), sections, theta),
+           atol=1e-6, rtol=1e-6)
+    cos, sin = TL.mrope_tables(to_torch(pos), d, sections, theta)
+    assert torch.equal(TL.rotate(to_torch(x), cos, sin),
+                       TL.apply_mrope(to_torch(x), to_torch(pos), sections,
+                                      theta))
+    text = np.repeat(pos[..., :1], 3, axis=-1)
+    assert torch.equal(
+        TL.apply_mrope(to_torch(x), to_torch(text), sections, theta),
+        TL.apply_rope(to_torch(x), to_torch(pos[..., 0]), theta))
+
+
 @pytest.mark.parametrize("groups", [1, 3, 4])
 def test_repeat_kv(groups):
     k = _x(2, 5, 2, 8)

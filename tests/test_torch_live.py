@@ -1,4 +1,4 @@
-"""Live execution mode of the port (process mode), mirroring
+"""Live execution mode of the port (process and container modes), mirroring
 tests/test_live.py: batcher-under-churn semantics, LiveBackend hooks, and
 the DES invoke path of the port's own ``Cluster`` with real payloads, all on
 the CPU (``device="cpu"``)."""
@@ -149,13 +149,70 @@ def test_admit_to_missing_sandbox_and_unknown_function_raise():
         bare.create_hook(_sandbox(1, fn="nope"))
 
 
-def test_container_mode_names_its_roadmap_item():
-    spec = LiveFunctionSpec(cfg=TINY, mode="container")
+def test_container_sandbox_roundtrip_equals_an_in_process_replica(tmp_path):
+    """Container mode (mirror of tests/test_live.py's roundtrip): a spawned
+    worker process serves two co-resident requests; its tokens equal an
+    in-process replica's drawn from the sandbox's seed, and the creation on
+    an empty build directory is logged cold."""
+    spec = LiveFunctionSpec(cfg=TINY, mode="container", max_seq=64,
+                            max_slots=2)
     lb = LiveBackend(default_spec=spec, exec_cache=ExecutableCache(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="container mode"):
-        lb.create_hook(_sandbox(1))
-    assert lb.replicas_live == 0
+                     compile_cache_dir=str(tmp_path / "build"), device="cpu")
+    lb.create_hook(_sandbox(3))
+    try:
+        row = lb.start_log[0]
+        assert row["mode"] == "container" and row["cold"] is True
+        assert row["wall_s"] > 0 and lb.replicas_live == 1
+        t1 = lb.admit(3, LiveRequest(prompt=[1, 2], max_new_tokens=3))
+        t2 = lb.admit(3, LiveRequest(prompt=[7, 8, 9], max_new_tokens=4))
+        assert t2.admit_peers == 1
+        r1, r2 = lb.collect(t1), lb.collect(t2)
+    finally:
+        lb.close()
+    assert lb.replicas_live == 0 and lb.teardowns == 1
+    solo = Replica(TINY, rng_seed=3, max_seq=64, exec_cache=ExecutableCache(),
+                   device="cpu")
+    assert not r1.failed and r1.tokens == solo.generate([1, 2], 3)
+    assert not r2.failed and r2.tokens == solo.generate([7, 8, 9], 4)
+    assert r1.batched_with >= 1
+
+
+def test_container_child_asked_for_cuda_fails_its_creation_promptly():
+    """The child never picks a device: asked for CUDA on a host without
+    it, it fails the creation with the cause instead of running on the
+    CPU, and the parent learns it from the pipe, not from the ready
+    timeout."""
+    import time
+
+    from repro_torch.live.container import _READY_TIMEOUT_S, ContainerSandbox
+
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    spec = LiveFunctionSpec(cfg=TINY, mode="container", max_seq=16,
+                            max_slots=1)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="failed to start(.|\n)*CUDA"):
+        ContainerSandbox(spec, seed=1, device="cuda")
+    assert time.perf_counter() - t0 < _READY_TIMEOUT_S / 2
+
+
+def test_container_cold_is_the_kernel_library_on_the_gpu(tmp_path):
+    """cold on a CUDA device: the library of the current sources is not in
+    the build directory yet; on the CPU, nothing is built and cold is the
+    reference's rule (the directory is empty or missing)."""
+    from repro_torch.kernels import build
+    from repro_torch.live.container import is_cold
+
+    d = tmp_path / "build"
+    assert is_cold(str(d), "cuda:0") and is_cold(str(d), "cpu")
+    d.mkdir()
+    (d / "unrelated").write_text("x")
+    assert is_cold(str(d), "cuda:0") and not is_cold(str(d), "cpu")
+    lib = d / f"kernels-{build.source_hash()}" / build.LIB_NAME
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    assert not is_cold(str(d), "cuda:0") and build.is_built(d)
+    assert is_cold(None, "cpu")
 
 
 def test_worker_kill_sandbox_calls_teardown_hook():

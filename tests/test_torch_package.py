@@ -18,9 +18,11 @@ REF, PORT = os.path.join(SRC, "repro"), os.path.join(SRC, "repro_torch")
 COPIED = (
     [f"simcore/{n}.py" for n in ("__init__", "engine", "sanitize")]
     + [f"core/{n}.py" for n in (
-        "__init__", "abstractions", "autoscaler", "cluster", "control_plane",
-        "costmodel", "data_plane", "leader_election", "metrics", "monitoring",
-        "persistence", "placement", "policies", "request", "worker")]
+        "__init__", "abstractions", "autoscaler", "baseline_knative",
+        "cluster", "control_plane", "costmodel", "data_plane",
+        "leader_election", "metrics", "monitoring", "persistence",
+        "placement", "policies", "request", "worker")]
+    + [f"analysis/{n}.py" for n in ("__init__", "lint", "rules")]
     + [f"configs/{n}.py" for n in (
         "__init__", "base", "arctic_480b", "glm4_9b", "granite_34b",
         "kimi_k2", "qwen2_vl_72b", "qwen3_32b", "rwkv6_7b", "smollm_360m",
@@ -34,7 +36,8 @@ def _read(path):
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_file_equals_original_up_to_package_name(rel):
-    """core/, simcore/ and configs/ are verbatim copies: only ``repro.`` /
+    """core/, simcore/, analysis/ and configs/ are verbatim copies: only
+    ``repro.`` /
     ``repro/`` became ``repro_torch.`` / ``repro_torch/``. Read as text —
     nothing of ``repro`` is imported here."""
     want = re.sub(r"\brepro([./])", r"repro_torch\1",
@@ -43,7 +46,7 @@ def test_copied_file_equals_original_up_to_package_name(rel):
 
 
 def test_every_copied_directory_is_listed():
-    for sub in ("simcore", "core", "configs"):
+    for sub in ("simcore", "core", "analysis", "configs"):
         have = {f"{sub}/{n}" for n in os.listdir(os.path.join(PORT, sub))
                 if n.endswith(".py")}
         assert have == {r for r in COPIED if r.startswith(sub + "/")}
@@ -75,7 +78,9 @@ need = {"repro_torch.kernels.ops", "repro_torch.kernels.build",
         "repro_torch.configs.smollm_360m", "repro_torch.convert",
         "repro_torch.models.rwkv", "repro_torch.models.ssm",
         "repro_torch.kernels.rwkv6_chunk", "repro_torch.kernels.ssd_chunk",
-        "repro_torch.kernels.chunked"}
+        "repro_torch.kernels.chunked", "repro_torch.models.moe",
+        "repro_torch.live.container", "repro_torch.analysis.lint",
+        "repro_torch.core.baseline_knative"}
 assert need <= set(names), need - set(names)
 from repro_torch.kernels import build
 assert build._lib is None            # nothing was built or loaded on import
@@ -224,3 +229,96 @@ def test_event_budget_pin_holds_on_the_copied_cluster():
     assert (events, creations) == run()
     assert creations > 0
     assert events == 8_525
+
+
+def _strip_suppressions(source):
+    return re.sub(r"#\s*simlint:\s*ok\([^)]*\).*", "", source)
+
+
+def test_copied_linter_gives_the_original_findings():
+    """The copied simlint on the port's core/ and simcore/ finds what the
+    original finds on repro's: on the trees as they stand (its default
+    paths, now the port's), and on every file with its suppressions
+    stripped, so that every rule has findings to agree on."""
+    from repro.analysis import DEFAULT_PATHS as ref_paths
+    from repro.analysis import lint_paths as ref_lint_paths
+    from repro.analysis import lint_source as ref_lint_source
+    from repro_torch.analysis import DEFAULT_PATHS, lint_paths, lint_source
+
+    assert DEFAULT_PATHS == tuple(p.replace("src/repro/", "src/repro_torch/")
+                                  for p in ref_paths)
+
+    def key(findings):
+        """(path below the package, line, rule, message) of each finding"""
+        return [(f.path.replace(PORT, "").replace(REF, ""), f.line, f.rule,
+                 f.message) for f in findings]
+
+    assert key(lint_paths([os.path.join(ROOT, p) for p in DEFAULT_PATHS])) \
+        == key(ref_lint_paths([os.path.join(ROOT, p) for p in ref_paths]))
+    rules_seen = set()
+    for sub in ("core", "simcore"):
+        for name in sorted(os.listdir(os.path.join(REF, sub))):
+            if not name.endswith(".py"):
+                continue
+            rel = f"{sub}/{name}"
+            want = ref_lint_source(
+                _strip_suppressions(_read(os.path.join(REF, rel))), rel)
+            got = lint_source(
+                _strip_suppressions(_read(os.path.join(PORT, rel))), rel)
+            assert [(f.line, f.rule, f.message) for f in got] == \
+                [(f.line, f.rule, f.message) for f in want], rel
+            rules_seen |= {f.rule for f in want}
+    # the rules the stripped trees leave quiet, on a snippet of their own
+    snippet = (
+        "import random\n"
+        "def f(self, env, names):\n"
+        "    x = hash(names) % 4\n"
+        "    random.random()\n"
+        "    for n in set(names):\n"
+        "        env.log(n)\n"
+        "    yield self.src.scale_lock.acquire()\n"
+        "    yield self.dst.scale_lock.acquire()\n")
+    got, want = lint_source(snippet, "s.py"), ref_lint_source(snippet, "s.py")
+    assert key(got) == key(want)
+    rules_seen |= {f.rule for f in want}
+    assert {"builtin-hash", "global-rng", "set-iteration", "lock-order",
+            "dict-iteration", "held-lock-timeout",
+            "wall-clock"} <= rules_seen, rules_seen
+
+
+def test_copied_knative_baseline_replays_the_original_trace():
+    """The copied KnativeCluster, driven on one seed with a burst of cold
+    and warm invocations, gives the original's event count and every
+    invocation's timeline."""
+    from repro.core import Function as RFunction
+    from repro.core import ScalingConfig as RScaling
+    from repro.core.baseline_knative import KnativeCluster as RKnative
+    from repro.simcore import Environment as REnv
+    from repro_torch.core import Function, ScalingConfig
+    from repro_torch.core.baseline_knative import KnativeCluster
+    from repro_torch.simcore import Environment
+
+    def run(env_cls, cluster_cls, fn_cls, scaling_cls):
+        env = env_cls(seed=11)
+        kn = cluster_cls(env, n_workers=8)
+        for i in range(3):
+            kn.register_sync(fn_cls(name=f"f{i}", image_url="img://kn",
+                                    port=80, scaling=scaling_cls()))
+        invs = []
+
+        def client(env):
+            for r in range(4):
+                for i in range(3):
+                    invs.append(kn.invoke(f"f{i}", exec_time=0.05))
+                    yield env.timeout(0.01)
+                yield env.timeout(1.0)
+
+        env.process(client(env), name="kn-client")
+        env.run(until=30.0)
+        return env.events_processed, [
+            (i.inv_id, i.function_name, i.t_done, i.failed, i.cold)
+            for i in invs]
+
+    events, trace = run(Environment, KnativeCluster, Function, ScalingConfig)
+    assert sum(1 for t in trace if t[2] > 0 and not t[3]) == 12
+    assert (events, trace) == run(REnv, RKnative, RFunction, RScaling)
