@@ -32,7 +32,7 @@ JSON line:
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
-then six paths, each driven with the launch counters zeroed just before
+then ten paths, each driven with the launch counters zeroed just before
 it and read just after it:
 
   smollm-360m  model: full-width prefill forward (flash-attention kernel)
@@ -68,6 +68,34 @@ it and read just after it:
                by the later (warm) ones; every request's tokens against an
                in-process replica with its sandbox's seed, which runs (and
                counts) the flash-decode kernel
+  whisper-small
+               the audio family at full width and depth (12 + 12 layers,
+               1500 frames drawn on the card, batch 2, weights at the
+               per-layer fan-in; the reference's init recorded), fp32 and
+               bf16:
+               encode and forward on the kernels (flash attention
+               non-causal over the frames, causal over the tokens, cross
+               attention with Sq != Skv) against the plain forms;
+               prefill_cross, 4 prompt and 32 greedy tokens through
+               decode_step (flash-decode against the self cache and the
+               1500-long cross cache), their logits against forward's at
+               every position
+  train/smollm-360m
+               the training launcher's step (plain attention forms, AdamW,
+               ZipfLMStream) at full width and depth in bf16: 20 steps, the
+               loss must fall; a checkpoint saved and restored on the CPU
+               bit for bit; every kernel wrapper handed a grad-requiring
+               CUDA input must refuse it; grad accumulation against one
+               step at fp32 depth 4 (on per-layer fan-in weights; the
+               reference's init recorded beside). Its kernel counters must
+               read 0
+  train/whisper-small
+               one train step at full width (bf16): finite loss, grad norm
+               above 0, parameters moved; its kernel counters must read 0
+  launch/serve the serve launcher (24 requests, 4 workers, the reduced
+               model) at 40 requests a virtual second: every request ok,
+               each one's tokens equal to a solo replica of the sandbox it
+               was admitted to
 
 then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
 error, time, plain time, library time, bound; for WKV6 and SSD also the
@@ -464,7 +492,10 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
             eager_plain_ms=time_ms(one_plain, reps=5, warmup=1),
             ms_one_call_graph=device_ms(one_kernel),
             library_ms=None, **bound(nbytes, flops, PEAK_FLOPS[dtype]))
-        if Sq == Skv and q_offset == 0:
+        # SDPA's causal mask is aligned top-left, the kernel's to the
+        # diagonal at q_offset: only a non-causal call or a square causal
+        # one computes the same function
+        if q_offset == 0 and (not causal or Sq == Skv):
             rec["library_max_abs_err"] = max_abs_err(one_library(), want)
             rec["library_ms"] = device_ms(calls(one_library), FLASH_CALLS)
             rec["library_ms_one_call_graph"] = device_ms(one_library)
@@ -873,6 +904,28 @@ def phase_kernels() -> dict:
                     bf16, True, timed=True),
         check_flash("flash/qwen2vl-g8-d128/fp32", 1, 256, 256, 64, 8, 128,
                     f32, True, timed=True),
+        # K1 and K2 at whisper-small's shapes: 12/12 heads of 64 (a group of
+        # 1). K2 non-causal over the 1500 encoder frames (1500 = 23 * 64 +
+        # 28: a ragged last tile) and as cross attention (64 decoder
+        # positions against the 1500 frames); K1 against the 1500-long
+        # cross cache (every length 1500: the split plan's last chunk is
+        # partial) and against a short self cache
+        check_flash("flash/whisper-enc/bf16", 2, 1500, 1500, 12, 12, 64, bf16,
+                    False, timed=True),
+        check_flash("flash/whisper-enc/fp32", 2, 1500, 1500, 12, 12, 64, f32,
+                    False),
+        check_flash("flash/whisper-cross/bf16", 2, 64, 1500, 12, 12, 64, bf16,
+                    False, timed=True),
+        check_flash("flash/whisper-cross/fp32", 2, 64, 1500, 12, 12, 64, f32,
+                    False),
+        check_flash("flash/whisper-dec-causal/bf16", 2, 36, 36, 12, 12, 64,
+                    bf16, True),
+        check_decode("decode/whisper-cross/bf16", 2, 1500, 12, 12, 64, bf16,
+                     [1500, 1500], timed=True, split=True),
+        check_decode("decode/whisper-cross/fp32", 2, 1500, 12, 12, 64, f32,
+                     [1500, 1500], split=True),
+        check_decode("decode/whisper-self/bf16", 2, 36, 12, 12, 64, bf16,
+                     [17, 17]),
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
         check_wkv6("wkv6/main/bf16", 1, 256, 64, 64, 64, 64, bf16,
@@ -1074,6 +1127,19 @@ def host_syncs(fn) -> Optional[int]:
     return n or None
 
 
+def kernel_rows(prof) -> list:
+    """(name, device microseconds, launches) of each kernel a
+    ``torch.profiler`` run saw, most time first. Kernel rows only: an
+    operator's row repeats its kernels' device time."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev_us, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     """Steady state of one replica with every slot busy: wall time per
     lockstep decode step, the host's waits for the device per step, and
@@ -1105,13 +1171,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
     syncs = host_syncs(lambda: [cb.step() for _ in range(2)])
-    # kernel rows only: an operator's row repeats its kernels' device time
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((ev.key, dev_us, ev.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = kernel_rows(prof)
     busy_us = sum(r[1] for r in rows)
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
            "ms_per_step": step_ms, "ms_per_step_traced": traced_ms,
@@ -1461,6 +1521,450 @@ def phase_generate(cfg) -> None:
          ms_per_step=[sa / steps * 1e3, sb / steps * 1e3])
 
 
+# -- phase: whisper -------------------------------------------------------------
+
+WHISPER_BATCH = 2
+WHISPER_PROMPT = 4    # tokens fed through decode_step before the greedy ones
+
+
+def whisper_leg(cfg, tol, label, init_kw) -> dict:
+    """whisper-small at full width in one dtype: ``encode`` and ``forward``
+    on the kernels (K2: non-causal over the frames, causal over the
+    tokens, cross attention) against the same weights on the plain forms;
+    ``prefill_cross``, then WHISPER_PROMPT prompt tokens and MAX_NEW greedy
+    tokens through ``decode_step`` (K1 against the self cache and the
+    1500-long cross cache); the decode logits against ``forward``'s at
+    every position. Frames are drawn on the card."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.api import RunConfig, build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(attn_impl="kernel"), device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                      **init_kw)
+    plain = build_model(cfg, RunConfig(attn_impl="plain"), device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, steps = WHISPER_BATCH, WHISPER_PROMPT + MAX_NEW
+    frames = torch.randn((b, model.enc_seq, cfg.d_model), generator=g,
+                         device="cuda").to(model.embed.dtype)
+    prompt = torch.randint(0, cfg.vocab, (b, WHISPER_PROMPT), generator=g,
+                           device="cuda", dtype=torch.int32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        enc, enc_s = timed(lambda: model.encode(frames))
+        _, enc_again_s = timed(lambda: model.encode(frames))
+        enc_plain = plain.encode(frames)
+        cache = model.init_cache(ShapeSpec("w", steps, b, "decode"))
+        _, prefill_s = timed(lambda: model.prefill_cross(frames, cache))
+        fed, logits = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            tok = prompt[:, t:t + 1] if t < WHISPER_PROMPT else nxt
+            lg, cache = model.decode_step(cache, {"tokens": tok,
+                                                  "cache_len": t})
+            fed.append(tok)
+            logits.append(lg.float())
+            nxt = torch.argmax(lg, dim=-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec = torch.stack(logits, dim=1)
+        batch = {"frames": frames, "tokens": torch.cat(fed, dim=1)}
+        fwd, fwd_s = timed(lambda: model.forward(batch).float())
+        _, fwd_again_s = timed(lambda: model.forward(batch))
+        fwd_plain = plain.forward(batch).float()
+    rec = {
+        "leg": label, "dtype": cfg.dtype, "batch": b,
+        "encoder_seq": model.enc_seq, "n_layers": cfg.n_layers,
+        "n_encoder_layers": model.enc_layers, "decode_steps": steps,
+        "tol": tol, "logit_std": float(fwd_plain.std()),
+        "encode_kernel_vs_encode_plain": max_abs_err(enc, enc_plain),
+        "forward_kernel_vs_forward_plain": max_abs_err(fwd, fwd_plain),
+        "decode_kernel_vs_forward_kernel": max_abs_err(dec, fwd),
+        "argmax_agree": bool(dec.argmax(-1).equal(fwd.argmax(-1))),
+        "encode_seconds": [enc_s, enc_again_s], "prefill_cross_s": prefill_s,
+        "forward_seconds": [fwd_s, fwd_again_s],
+        "decode_ms_per_step": dec_s / steps * 1e3,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit("whisper-leg", config=cfg.name, init=init_kw, **rec)
+    require(fwd.shape == (b, steps, cfg.vocab), f"{label}: {fwd.shape}")
+    for name, t in (("encode", enc), ("forward", fwd), ("decode", dec),
+                    ("forward plain", fwd_plain)):
+        require(bool(torch.isfinite(t.float()).all()),
+                f"{label}: {name} not finite")
+    for key in ("encode_kernel_vs_encode_plain",
+                "forward_kernel_vs_forward_plain",
+                "decode_kernel_vs_forward_kernel"):
+        require(rec[key] <= tol, f"{label}: {key} = {rec[key]} > {tol}")
+    del model, plain, cache, enc, enc_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def whisper_init_scale(cfg) -> dict:
+    """Recorded, not gated: the encoder at the reference's init (fp32),
+    kernel against plain and plain against the O(S^2) oracle. Its matrices
+    are drawn at the stacked fan-in (12 for a 768-wide input), scores have
+    a std of ~64 and rows are one-hot, so near-ties that two orderings of
+    the same fp32 arithmetic break differently move whole rows (ROADMAP
+    §C9); the legs above run on ``layer_fan_in`` weights."""
+    from repro_torch.models.api import RunConfig, build_model
+
+    model = build_model(cfg, RunConfig(attn_impl="kernel"), device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    frames = torch.randn((WHISPER_BATCH, model.enc_seq, cfg.d_model),
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             SEED + 3), device="cuda")
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain", "reference"):
+            model.run = RunConfig(attn_impl=impl)
+            outs[impl] = model.encode(frames)
+    rec = {"dtype": cfg.dtype, "init": "reference",
+           "encode_kernel_vs_plain": max_abs_err(outs["kernel"],
+                                                 outs["plain"]),
+           "encode_plain_vs_reference": max_abs_err(outs["plain"],
+                                                    outs["reference"])}
+    del model, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_whisper(cfg) -> None:
+    """Full depth (12 + 12 layers) in fp32 and in bf16, on weights drawn at
+    the per-layer fan-in (``layer_fan_in``); the reference's init recorded
+    beside them."""
+    from dataclasses import replace
+
+    fan = {"layer_fan_in": True}
+    f32 = replace(cfg, dtype="float32")
+    legs = [whisper_leg(f32, FP32_TOL, "fp32-full", fan),
+            whisper_leg(cfg, BF16_TOL, "bf16-full", fan)]
+    emit("whisper", config=cfg.name, legs=legs,
+         reference_init=whisper_init_scale(f32))
+
+
+# -- phase: train ---------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 256, 3e-3
+
+
+def probe_grad_refusal() -> list:
+    """Each kernel's wrapper, handed a CUDA input that requires grad, must
+    raise before it launches (ROADMAP §C6)."""
+    from repro_torch.kernels import ops
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, device="cuda", dtype=dtype)
+
+    cases = {
+        "flash_attention": lambda q: ops.flash_attention(
+            q, t(1, 64, 2, 64), t(1, 64, 2, 64)),
+        "decode_attention": lambda q: ops.decode_attention(
+            q[:, :1].contiguous(), t(1, 64, 2, 64), t(1, 64, 2, 64), 64),
+        "wkv6": lambda q: ops.wkv6(q, t(1, 64, 2, 64), t(1, 64, 2, 64),
+                                   torch.rand((1, 64, 2, 64), device="cuda"),
+                                   t(2, 64)),
+        "ssd": lambda q: ops.ssd(q, torch.rand((1, 64, 2), device="cuda"),
+                                 -torch.ones(2, device="cuda"),
+                                 t(1, 64, 2, 16), t(1, 64, 2, 16),
+                                 t(2)),
+    }
+    refused = []
+    for name, call in cases.items():
+        before = ops.launch_counts()[name]
+        q = t(1, 64, 2, 64).requires_grad_(True)
+        try:
+            call(q)
+        except RuntimeError as e:
+            require('attn_impl="plain"' in str(e), f"{name}: {e}")
+            refused.append(name)
+        require(ops.launch_counts()[name] == before,
+                f"{name}: launched with a grad-requiring input")
+    require(len(refused) == len(cases),
+            f"kernels that took a grad-requiring input: "
+            f"{sorted(set(cases) - set(refused))}")
+    return refused
+
+
+ADAMW_EPS = 1e-8
+
+
+def accum_pair(cfg, layer_fan_in: bool) -> dict:
+    """One AdamW step from the gradients of the whole batch against one from
+    grad_accum 2 over the same batch (``loss_and_grads``, the train step's
+    own), the same weights (the Trainer's, drawn again at the per-layer
+    fan-in when asked). Compared: the loss, the gradients, and the
+    parameters after the step, the latter split by the gradient's size:
+    where either run's gradient is below 100 * AdamW's eps the first step's
+    update g / (|g| + eps) is not yet sign(g) and a 1e-9 change of g moves
+    it by a fraction of lr, so those elements are counted and bounded by
+    what one step can move (2 * lr), the others held to atol 1e-4, rtol
+    1e-3."""
+    from repro_torch.launch.train import Trainer, run_config
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import loss_and_grads
+
+    runs = []
+    for accum in (1, 2):
+        tr = Trainer(cfg, run_config(grad_accum=accum), seq=TRAIN_SEQ,
+                     batch=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                     device="cuda")
+        if layer_fan_in:
+            tr.model.init_params(
+                torch.Generator(device="cuda").manual_seed(SEED),
+                layer_fan_in=True)
+        loss, grads = loss_and_grads(tr.model, tr.stream.batch_at(0), accum)
+        grads = {k: g.float() for k, g in grads.items()}
+        adamw_update(grads, tr.opt, tr.params, lr=TRAIN_LR)
+        runs.append((float(loss), grads,
+                     {k: p.detach() for k, p in tr.params.items()}))
+        del tr
+    (l1, g1, p1), (l2, g2, p2) = runs
+    grad_excess, outside, small, small_max_dp, excess = 0.0, 0, 0, 0.0, 0.0
+    for k in p1:
+        scale = max(1.0, float(g1[k].abs().max()))
+        grad_excess = max(grad_excess, float(
+            ((g1[k] - g2[k]).abs() - 1e-3 * g1[k].abs()).max()) / scale)
+        dp = (p1[k] - p2[k]).abs()
+        tight = torch.minimum(g1[k].abs(), g2[k].abs()) >= 100 * ADAMW_EPS
+        over = dp - 1e-3 * p2[k].abs()
+        excess = max(excess, float(torch.where(tight, over, 0.0).max()))
+        outside += int(((over > 1e-4) & tight).sum())
+        small += int((~tight).sum())
+        small_max_dp = max(small_max_dp, float(torch.where(
+            tight, 0.0, dp).max()))
+    del runs, g1, g2, p1, p2
+    torch.cuda.empty_cache()
+    return {"layer_fan_in": layer_fan_in, "loss": [l1, l2],
+            "loss_rel_diff": abs(l1 - l2) / abs(l1),
+            "grad_max_excess_over_rtol_per_scale": grad_excess,
+            "param_max_excess_over_rtol": excess,
+            "params_outside_tol": outside,
+            "params_with_grad_below_100_eps": small,
+            "their_max_param_diff": small_max_dp}
+
+
+def accum_equivalence(cfg) -> dict:
+    """tests/test_train.py::test_grad_accum_equivalence on the card, gated
+    on weights drawn at the per-layer fan-in: loss rtol 1e-5, gradients
+    atol 1e-4 (in units of a leaf's largest where that exceeds 1) and rtol
+    1e-3, parameters atol 1e-4, rtol 1e-3 where the gradient is above
+    100 * eps and within 2 * lr where it is not (``accum_pair``). The
+    reference's init is recorded beside it, not gated: its one-hot
+    attention rows break near-ties differently in a batch of 8 and two of
+    4 (other GEMM shapes, other rounding), which moves whole rows'
+    gradients (ROADMAP §C4)."""
+    rec = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "gated": accum_pair(cfg, layer_fan_in=True),
+           "reference_init": accum_pair(cfg, layer_fan_in=False)}
+    gated = rec["gated"]
+    require(gated["loss_rel_diff"] <= 1e-5, f"accum: loss {gated['loss']}")
+    require(gated["grad_max_excess_over_rtol_per_scale"] <= 1e-4,
+            f"accum: gradients differ: {gated}")
+    require(gated["params_outside_tol"] == 0
+            and gated["their_max_param_diff"] <= 2 * TRAIN_LR + 1e-4,
+            f"accum: parameters differ: {gated}")
+    return rec
+
+
+def profile_train_step(tr, step: int) -> dict:
+    """One more train step under ``torch.profiler``, its batch made
+    before the trace: wall time, the device's busy time and share, its
+    kernel launches, and the kernels that took most of it (device numbers
+    None when the profiler saw no device activity: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = tr.stream.batch_at(step)
+    g = torch.Generator(device="cuda").manual_seed(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.opt, _ = tr.step_fn(tr.opt, batch, g)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    if not rows:
+        return {"ms_traced": traced_ms, "device_busy_ms": None}
+    return {"ms_traced": traced_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / traced_ms,
+            "device_launches": sum(r[2] for r in rows),
+            "top_device_kernels": [
+                {"name": k[:60], "ms": us / 1e3, "launches": n}
+                for k, us, n in rows[:8]]}
+
+
+def phase_train_lm(cfg) -> None:
+    """The training launcher's step on the card (``Trainer``: its RunConfig
+    with the plain attention forms, ZipfLMStream, AdamW): TRAIN_STEPS steps
+    at full width and depth in bf16, the loss must fall and stay finite;
+    one checkpoint saved, restored on the CPU and compared bit for bit; the
+    kernels' refusal of gradients probed; grad accumulation against one
+    step at fp32 depth 4."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.launch.train import Trainer, run_config
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, run_config(), seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                 lr=TRAIN_LR, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in tr.params.values())
+    t0 = time.perf_counter()
+    tr.stream.batch_at(0)
+    data_s = time.perf_counter() - t0
+    losses, gnorms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(step_s[2:])[len(step_s[2:]) // 2]
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"train: non-finite loss or grad norm: {losses} {gnorms}")
+    require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+
+    ck = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    writer = save_checkpoint(ck, TRAIN_STEPS, tr.state(), async_save=True)
+    handed_back_s = time.perf_counter() - t0
+    writer.join()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = restore_checkpoint(ck, None, tr.state(), device="cpu")
+    restore_s = time.perf_counter() - t0
+    require(at == TRAIN_STEPS, f"restored step {at}")
+    same = [k for k, p in tr.params.items()
+            if restored["params"][k].dtype == p.dtype
+            and torch.equal(restored["params"][k], p.detach().cpu())]
+    require(len(same) == len(tr.params),
+            f"restored parameters differ: "
+            f"{sorted(set(tr.params) - set(same))[:5]}")
+    for k in tr.params:
+        require(torch.equal(restored["opt"].mu[k], tr.opt.mu[k].cpu())
+                and torch.equal(restored["opt"].nu[k], tr.opt.nu[k].cpu()),
+                f"restored moments of {k} differ")
+    require(int(restored["opt"].step) == TRAIN_STEPS, "restored AdamW step")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(ck) for f in fs)
+    shutil.rmtree(ck)
+    profile = profile_train_step(tr, TRAIN_STEPS)
+    del tr, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    refused = probe_grad_refusal()
+    accum = accum_equivalence(replace(cfg, n_layers=4, dtype="float32"))
+    emit("train", config=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+         params=n_params, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, lr=TRAIN_LR, run=str(run_config()), losses=losses,
+         grad_norms=gnorms, step_seconds=step_s, steady_ms_per_step=steady
+         * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady,
+         data_seconds_per_batch=data_s, peak_memory_bytes=peak,
+         checkpoint={"bytes": ckpt_bytes, "async_returned_s": handed_back_s,
+                     "save_s": save_s, "restore_cpu_s": restore_s,
+                     "params_bit_equal": True, "moments_bit_equal": True},
+         refused_grad=refused, grad_accum=accum, profile=profile)
+
+
+def phase_train_whisper(cfg) -> None:
+    """One train step of whisper-small at full width (bf16), as
+    tests/test_models_smoke.py::test_forward_and_train_step: the loss
+    finite, the grad norm above 0, the parameters moved."""
+    from repro_torch.models.api import RunConfig, build_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, RunConfig(attn_impl="plain"), device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    step = make_train_step(model, lr=1e-3)
+    opt = adamw_init(dict(model.named_parameters()))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, s = WHISPER_BATCH, 32
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"frames": torch.randn((b, model.enc_seq, cfg.d_model),
+                                   generator=g, device="cuda").to(
+                                       model.embed.dtype),
+             "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt, m = step(opt, batch, g)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    moved = sum(int(not torch.equal(p, before[k]))
+                for k, p in model.named_parameters())
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    emit("train-whisper", config=cfg.name, dtype=cfg.dtype, batch=b,
+         seq=s, loss=loss, grad_norm=gnorm, params_moved=moved,
+         params_total=len(before), step_seconds=step_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    require(math.isfinite(loss), f"train-whisper: loss {loss}")
+    require(gnorm > 0, f"train-whisper: grad norm {gnorm}")
+    require(moved > 0, "train-whisper: no parameter moved")
+    del model, opt, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- phase: launch/serve --------------------------------------------------------
+
+def phase_launch_serve() -> None:
+    """The serve launcher at the reference's size (24 requests, 4 workers,
+    the reduced model) at 40 requests a virtual second, so that the
+    autoscaler starts several sandboxes: every request ok, and each one's
+    tokens equal a solo replica drawn from the seed of the sandbox it was
+    admitted to (each sandbox's replica has other weights)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Replica
+
+    out = serve.main(["--device", "cuda", "--rate", "40"])
+    invs, backend = out["invocations"], out["backend"]
+    require(out["ok"] == len(invs) == 24, f"launch/serve: {out['ok']}/"
+            f"{len(invs)} ok")
+    sids = {backend.sandbox_of[id(i.request)] for i in invs}
+    require(len(sids) >= 2, f"launch/serve: one sandbox served all: {sids}")
+    solo = {sid: Replica(out["cfg"], rng_seed=sid, max_seq=serve.MAX_SEQ,
+                         device="cuda") for sid in sids}
+    for i in invs:
+        want = solo[backend.sandbox_of[id(i.request)]].generate(
+            i.request.prompt, max_new_tokens=i.request.max_new_tokens)
+        require(i.request.tokens == want,
+                f"launch/serve: request {i.inv_id} was not served by its "
+                f"sandbox's replica: {i.request.tokens} vs {want}")
+    require(backend.replicas_live == 0 and backend.teardowns
+            == out["replicas"], "launch/serve: replicas left after close")
+    lats = sorted(i.e2e_latency for i in invs)
+    emit("launch-serve", requests=len(invs), ok=out["ok"],
+         sandboxes_served=len(sids), replicas=out["replicas"],
+         teardowns=backend.teardowns, wall_s=out["wall_s"],
+         e2e_virtual_p50_s=lats[len(lats) // 2], e2e_virtual_max_s=lats[-1],
+         tokens_equal_own_sandbox=True)
+    del solo
+    torch.cuda.empty_cache()
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1480,7 +1984,13 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "arctic-480b": ("decode_attention", "flash_attention"),
                 "qwen2-vl-72b": ("decode_attention", "flash_attention"),
                 # the parent's in-process replicas that check the children
-                "smollm-360m/container": ("decode_attention",)}
+                "smollm-360m/container": ("decode_attention",),
+                "whisper-small": ("decode_attention", "flash_attention"),
+                # training runs the plain forms: these must launch nothing
+                "train/smollm-360m": (),
+                "train/whisper-small": (),
+                "launch/serve": ("decode_attention",)}
+NO_KERNEL_PATHS = ("train/smollm-360m", "train/whisper-small")
 
 
 def run_path(name, serve_records) -> dict:
@@ -1493,7 +2003,9 @@ def run_path(name, serve_records) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    cfg = get_config(name.split("/")[0])
+    head, _, tail = name.partition("/")
+    cfg = get_config(tail if head in ("train", "launch") else head) \
+        if name != "launch/serve" else None
     ops.reset_launch_counts()
     if name == "smollm-360m":
         phase_model(cfg, fp32_depth=4)
@@ -1517,11 +2029,22 @@ def run_path(name, serve_records) -> dict:
                     full_depth=cfg.n_layers)
     elif name == "qwen2-vl-72b":
         phase_model(cfg, fp32_depth=2, bf16_depth=8)
-    else:
+    elif name == "smollm-360m/container":
         phase_container(cfg, serve_records["smollm-360m"])
+    elif name == "whisper-small":
+        phase_whisper(cfg)
+    elif name == "train/smollm-360m":
+        phase_train_lm(cfg)
+    elif name == "train/whisper-small":
+        phase_train_whisper(cfg)
+    else:
+        phase_launch_serve()
     counts = ops.launch_counts()
     for k in PATH_KERNELS[name]:
         require(counts[k] > 0, f"{name}: the path never launched {k}")
+    if name in NO_KERNEL_PATHS:
+        require(not any(counts.values()),
+                f"{name}: training launched kernels: {counts}")
     torch.cuda.empty_cache()
     return counts
 

@@ -2,8 +2,10 @@
 
 The reference side is handed over **as numpy**: a nested dict of numpy
 arrays with the reference's keys (``embed``, ``final_norm``, ``layers`` →
-``{ln1, wq, ...}``, optional ``lm_head``), bf16 leaves travelling as
-float32. The caller does the framework → numpy step, so nothing here
+``{ln1, wq, ...}``, optional ``lm_head``; Whisper's ``encoder`` and
+``decoder`` subtrees, Zamba2's ``mamba`` and ``shared``), bf16 leaves
+travelling as float32. Nesting maps onto dotted ``state_dict`` names
+(``decoder.x_wq``) both ways. The caller does the framework → numpy step, so nothing here
 imports anything but numpy and torch.
 """
 from __future__ import annotations

@@ -191,3 +191,18 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
                            f"(launcher returned {code})")
     msg = lib.repro_cuda_error_string(code).decode()
     raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would have to pass through a kernel. The kernels
+    fill their outputs through ``ctypes`` and have no backward (nor do the
+    TPU kernels they replace), so the result would carry no ``grad_fn`` and
+    a loss would silently get no gradient. Checked before the device
+    branch, so a CPU tensor is refused as a CUDA one is; never a quiet
+    switch to the plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel has no "
+            "backward; train on the plain forms with "
+            "RunConfig(attn_impl=\"plain\")")

@@ -161,6 +161,7 @@ def decode_attention(q, k_cache, v_cache, cache_len,
     """Kernel on CUDA tensors, plain version on CPU tensors. ``plan``
     overrides ``split_plan``'s ``(nsplit, chunk)`` (for measuring the
     kernel); the plain version ignores it."""
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":

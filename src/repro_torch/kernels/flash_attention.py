@@ -101,6 +101,7 @@ def flash_attention(q, k, v, causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Kernel on CUDA tensors (its tile sizes are its own; the chunk
     arguments steer the plain version only), plain version on CPU tensors."""
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_chunk=q_chunk,
                                      kv_chunk=kv_chunk, q_offset=q_offset)

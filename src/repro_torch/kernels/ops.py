@@ -3,9 +3,12 @@
 ``impl``:
   * "kernel"    — the hand-written CUDA kernel on CUDA tensors (no
                   fall-back: it launches or raises); the plain version on
-                  CPU tensors, which is how the CPU tests reach it;
+                  CPU tensors, which is how the CPU tests reach it. On
+                  either device it refuses an input that requires grad:
+                  the kernels have no backward (``build.refuse_grad``);
   * "plain"     — the plain PyTorch version on whatever device the tensors
-                  are on (the kernels' on-device yardstick);
+                  are on (the kernels' on-device yardstick, and the form
+                  training differentiates);
   * "reference" — the oracles of ``ref.py`` (O(S^2) attention, token-by-
                   token recurrences; tests only).
 """

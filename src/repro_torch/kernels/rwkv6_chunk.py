@@ -67,6 +67,7 @@ def wkv6(r, k, v, w, u, initial_state=None, chunk: int = 64,
     """Kernel on CUDA tensors, plain version on CPU tensors. ``design``
     (CUDA only, for timing) forces one of the kernel's block shapes
     (``repro_wkv6_chunk`` in ``csrc/rwkv6_chunk.cu``); 0 lets it choose."""
+    build.refuse_grad("wkv6", r, k, v, w, u, initial_state)
     chunk = int(chunk)
     _check_chunk(r.shape[1], chunk)
     if r.device.type == "cpu":

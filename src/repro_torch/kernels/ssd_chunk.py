@@ -72,6 +72,7 @@ def ssd(x, dt, A, B, C, D, initial_state=None, chunk: int = 64,
     """Kernel on CUDA tensors, plain version on CPU tensors. ``design``
     (CUDA only, for timing) forces one of the kernel's block shapes
     (``repro_ssd_chunk`` in ``csrc/ssd_chunk.cu``); 0 lets it choose."""
+    build.refuse_grad("ssd", x, dt, A, B, C, D, initial_state)
     chunk = int(chunk)
     _check_chunk(x.shape[1], chunk)
     if x.device.type == "cpu":

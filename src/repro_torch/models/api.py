@@ -1,16 +1,17 @@
 """Model factory + run configuration.
 
 ``build_model(cfg, run_cfg, device)`` returns an ``nn.Module`` with the
-surface the serving layer uses:
+surface the serving and training layers use:
 
     init_params(generator)  -> fills the parameters in place from a seed
     forward(batch)          -> logits (prefill forward)
     decode_step(cache, batch) -> (logits, cache)
     init_cache(shape)       -> zeroed KV cache for decode shapes
+    loss_fn(batch)          -> mean next-token cross-entropy (training)
 
-The dense, moe and vlm (``DecoderLM``), ssm (``RWKV6Model``) and hybrid
-(``Zamba2Model``) families are ported; audio raises
-``NotImplementedError`` naming its ROADMAP item.
+Every family is ported: dense, moe and vlm (``DecoderLM``), ssm
+(``RWKV6Model``), hybrid (``Zamba2Model``) and audio (``WhisperModel``,
+which adds ``prefill_cross(frames, cache)``).
 """
 from __future__ import annotations
 
@@ -48,11 +49,6 @@ class RunConfig:
     grad_accum: int = 1
 
 
-_PENDING = {
-    "audio": "A11 (models/whisper.py)",
-}
-
-
 def build_model(cfg: ArchConfig, run_cfg: Optional[RunConfig] = None,
                 device: DeviceLike = None):
     run_cfg = run_cfg or RunConfig()
@@ -65,8 +61,7 @@ def build_model(cfg: ArchConfig, run_cfg: Optional[RunConfig] = None,
     if cfg.family == "hybrid":
         from repro_torch.models.ssm import Zamba2Model
         return Zamba2Model(cfg, run_cfg, device=device)
-    if cfg.family in _PENDING:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP item {_PENDING[cfg.family]}")
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import WhisperModel
+        return WhisperModel(cfg, run_cfg, device=device)
     raise ValueError(f"unknown family {cfg.family}")

@@ -152,3 +152,32 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
     h = torch.matmul(x, w_up) + b_up
     out = torch.matmul(F.gelu(h, approximate="tanh").to(x.dtype), w_down)
     return (out + b_down).to(x.dtype)
+
+
+# -- training -----------------------------------------------------------------
+
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's ``loss_fn`` arithmetic: fp32 logits,
+    ``logsumexp - gold``, mean over every position."""
+    logits = logits.float()
+    labels = labels.to(device=logits.device, dtype=torch.long)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+# -- decode lengths -----------------------------------------------------------
+
+def one_cache_len(cache_len: torch.Tensor, who: str) -> torch.Tensor:
+    """One length for the whole batch, as a 0-d long tensor: a scalar, or a
+    (B,) tensor whose entries are equal. The reference writes such a
+    model's caches with one scalar ``dynamic_update_slice``, so per-row
+    lengths that differ raise (ROADMAP §C2) instead of being misread.
+    Comparing the entries reads them on the host."""
+    if cache_len.ndim:
+        if bool((cache_len != cache_len.reshape(-1)[0]).any()):
+            raise ValueError(
+                f"{who}.decode_step takes one cache_len for the whole "
+                "batch, as the reference does; per-row lengths are not "
+                "supported (ROADMAP §C2)")
+        cache_len = cache_len.reshape(-1)[0]
+    return cache_len.long()

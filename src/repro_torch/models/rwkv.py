@@ -12,8 +12,9 @@ an untied ``lm_head``. Differences that come with PyTorch's idiom, as for
   * an ``nn.Module`` that owns its parameters under the reference tree's
     keys, layers stacked on a leading ``L`` axis (``layers.{ln1, w_r, ...}``);
   * a Python loop over ``L`` where the reference scans; no remat, no
-    sharding; serving only (no ``loss_fn``); call under
-    ``torch.inference_mode()``;
+    sharding; ``loss_fn`` trains through the plain WKV6 form
+    (``attn_impl="plain"``: the kernel has no backward); serving calls it
+    under ``torch.inference_mode()``;
   * ``decode_step`` writes the state into the cache in place and returns
     the cache it was given.
 
@@ -231,6 +232,11 @@ class RWKV6Model(nn.Module):
             w = {k: p[i] for k, p in self.layers.items()}
             x, _ = self._block(w, x, state, decode=False)
         return self._logits(x)
+
+    def loss_fn(self, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``forward`` against
+        ``batch["labels"]`` (B, S)."""
+        return L.next_token_loss(self.forward(batch), batch["labels"])
 
     def decode_step(self, cache, batch):
         """One decode step: batch = {tokens (B,1), cache_len () or (B,)} ->

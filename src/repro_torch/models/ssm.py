@@ -10,9 +10,10 @@ and the single-token step ``ssd_decode`` in ``decode_step``; attention goes
 through ``ops.flash_attention`` / ``ops.decode_attention`` as in
 ``DecoderLM``. Parameters keep the reference tree's keys: ``mamba.*`` with
 leading ``(n_super, per_super)`` axes, ``shared.*``, ``embed``,
-``final_norm``, ``lm_head``. Serving only; call under
-``torch.inference_mode()``. ``decode_step`` writes the caches in place and
-returns the cache it was given.
+``final_norm``, ``lm_head``. ``loss_fn`` trains through the plain SSD and
+attention forms (``attn_impl="plain"``: the kernels have no backward);
+serving calls it under ``torch.inference_mode()``. ``decode_step`` writes
+the caches in place and returns the cache it was given.
 
 ``decode_step`` takes one ``cache_len`` for the whole batch, as the
 reference does (it broadcasts a scalar and writes the KV caches with one
@@ -268,21 +269,20 @@ class Zamba2Model(nn.Module):
             x = self._shared_block(x, rope)
         return self._logits(x)
 
+    def loss_fn(self, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``forward`` against
+        ``batch["labels"]`` (B, S)."""
+        return L.next_token_loss(self.forward(batch), batch["labels"])
+
     def decode_step(self, cache, batch):
         """One decode step: batch = {tokens (B,1), cache_len: one length for
         the batch (a scalar, or a (B,) tensor whose entries are equal)} ->
         (logits (B, V), cache). ``cache`` is written in place."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
-        cache_len = torch.as_tensor(batch["cache_len"], device=self.device)
-        if cache_len.ndim:
-            if bool((cache_len != cache_len.reshape(-1)[0]).any()):
-                raise ValueError(
-                    "Zamba2Model.decode_step takes one cache_len for the "
-                    "whole batch, as the reference does; per-row lengths "
-                    "are not supported (ROADMAP §C)")
-            cache_len = cache_len.reshape(-1)[0]
-        cache_len = cache_len.long()
+        cache_len = L.one_cache_len(
+            torch.as_tensor(batch["cache_len"], device=self.device),
+            "Zamba2Model")
         b = tokens.shape[0]
         x = self.embed[tokens.long()]
         pos = cache_len.to(torch.int32).reshape(1, 1).expand(b, 1)

@@ -22,8 +22,12 @@ with PyTorch's idiom:
     in place of the dense MLP; the vlm family rotates by M-RoPE with the
     text-only position stream ``(pos, pos, pos)``, as the reference does
     (its vision front end is a stub);
-  * serving only: no ``loss_fn``, no expert-parallel or sharded decode yet.
-    Call it under ``torch.inference_mode()``.
+  * ``loss_fn`` (the reference's arithmetic) trains through the plain
+    attention forms: parameters are made with ``requires_grad=False`` for
+    serving, a trainer turns them on with ``requires_grad_(True)``, and a
+    kernel refuses an input that requires grad, so training runs with
+    ``RunConfig(attn_impl="plain")``. No expert-parallel or sharded decode
+    yet. Serving calls it under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -99,13 +103,18 @@ class DecoderLM(nn.Module):
         return shapes
 
     @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> "DecoderLM":
+    def init_params(self, generator: torch.Generator,
+                    layer_fan_in: bool = False) -> "DecoderLM":
         """Fill the parameters in place from ``generator`` (which must live
         on the parameters' device). Scales are the reference's: norms 1,
         biases 0, embeddings N(0, 0.02), every other matrix
         N(0, 1/sqrt(fan_in)) with ``fan_in`` read off the stacked shape;
         the MoE keys follow ``moe.init_moe_param`` (their own fan-in, drawn
-        a matrix at a time)."""
+        a matrix at a time). The stacked fan-in (``L``) makes attention
+        rows near one-hot at full width (ROADMAP §C4); ``layer_fan_in=True``
+        draws the layer matrices at 1/sqrt(their per-layer fan-in) instead
+        (a deviation from the reference, for checks that need a
+        well-conditioned model), as ``Zamba2Model.init_params`` does."""
         moe_keys = moe_param_shapes(self.cfg) if self.cfg.moe else {}
         for k, p in self.layers.items():
             if k in moe_keys:
@@ -115,7 +124,8 @@ class DecoderLM(nn.Module):
             elif k.startswith("b_"):
                 p.zero_()
             else:
-                p.copy_(L.dense_init(generator, p.shape, p.dtype,
+                scale = p.shape[-2] ** -0.5 if layer_fan_in else None
+                p.copy_(L.dense_init(generator, p.shape, p.dtype, scale=scale,
                                      device=p.device))
         self.embed.copy_(L.dense_init(generator, self.embed.shape,
                                       self.embed.dtype, scale=0.02,
@@ -234,6 +244,11 @@ class DecoderLM(nn.Module):
         x = self.embed[tokens.long()]
         x = self._stack(x, self._positions(tokens))
         return self._logits(x)
+
+    def loss_fn(self, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``forward`` against
+        ``batch["labels"]`` (B, S)."""
+        return L.next_token_loss(self.forward(batch), batch["labels"])
 
     def decode_step(self, cache, batch):
         """One decode step: batch = {tokens (B,1), cache_len () or (B,)} ->

@@ -69,7 +69,7 @@ mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
-             or n == "repro" or n.startswith("repro."))
+             or n == "repro" or n.startswith("repro.") or n == "msgpack")
 assert not bad, bad
 need = {"repro_torch.kernels.ops", "repro_torch.kernels.build",
         "repro_torch.models.transformer", "repro_torch.serving.engine",
@@ -80,7 +80,11 @@ need = {"repro_torch.kernels.ops", "repro_torch.kernels.build",
         "repro_torch.kernels.rwkv6_chunk", "repro_torch.kernels.ssd_chunk",
         "repro_torch.kernels.chunked", "repro_torch.models.moe",
         "repro_torch.live.container", "repro_torch.analysis.lint",
-        "repro_torch.core.baseline_knative"}
+        "repro_torch.core.baseline_knative", "repro_torch.models.whisper",
+        "repro_torch.train.optimizer", "repro_torch.train.compress",
+        "repro_torch.train.data", "repro_torch.train.train_step",
+        "repro_torch.train.checkpoint", "repro_torch.train.msgpack_codec",
+        "repro_torch.launch.train", "repro_torch.launch.serve"}
 assert need <= set(names), need - set(names)
 from repro_torch.kernels import build
 assert build._lib is None            # nothing was built or loaded on import
@@ -95,9 +99,12 @@ print("ok", len(names))
 
 def test_sources_name_no_jax_import():
     """Belt and braces for the subprocess test: no source line of the port
-    imports jax or repro."""
+    (its package, chip_smoke.py, its examples) imports jax or repro."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += [os.path.join(ROOT, "examples", n)
+              for n in os.listdir(os.path.join(ROOT, "examples"))
+              if n.endswith("_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         paths += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

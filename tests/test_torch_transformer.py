@@ -157,7 +157,14 @@ def test_init_params_scales_and_determinism():
     assert "lm_head" in untied.state_dict()
 
 
-@pytest.mark.parametrize("name,item", [("whisper-small", "A11")])
-def test_unported_families_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(get_config(name).reduced(), device="cpu")
+def test_layer_fan_in_init_draws_at_the_per_layer_fan_in():
+    """The deviation the full-width checks use (ROADMAP §C4): layer
+    matrices at 1/sqrt(their own fan-in); the rest as the reference's."""
+    cfg = get_config("smollm-360m").reduced(n_layers=4)
+    m = build_model(cfg, device="cpu")
+    m.init_params(torch.Generator().manual_seed(0), layer_fan_in=True)
+    sd = m.state_dict()
+    assert abs(float(sd["layers.wq"].std()) - 64 ** -0.5) < 5e-3
+    assert abs(float(sd["layers.w_down"].std()) - 128 ** -0.5) < 5e-3
+    assert abs(float(sd["embed"].std()) - 0.02) < 2e-3
+    assert bool((sd["layers.ln1"] == 1).all())

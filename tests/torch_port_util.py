@@ -4,6 +4,9 @@ Inputs and weights are made with numpy from a seed and handed to both the
 JAX package (``repro``) and the PyTorch port (``repro_torch``); nothing here
 needs a GPU: every port object is built with ``device="cpu"``.
 """
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -58,3 +61,64 @@ def model_pair(name, seed=0, q_chunk=8, kv_chunk=8, seq_chunk=8, **kw):
                               seq_chunk=seq_chunk), device="cpu")
     convert.load_params(mt, jax_tree_to_numpy(pj))
     return mj, pj, mt
+
+
+@contextlib.contextmanager
+def attn_impl(model, impl):
+    """The model with ``RunConfig.attn_impl = impl`` inside the block."""
+    old = model.run
+    model.run = dataclasses.replace(old, attn_impl=impl)
+    try:
+        yield model
+    finally:
+        model.run = old
+
+
+@contextlib.contextmanager
+def training(model):
+    """The model as the trainer runs it inside the block: the plain
+    attention and recurrence forms, gradients on for every parameter."""
+    with attn_impl(model, "plain"):
+        model.requires_grad_(True)
+        try:
+            yield model
+        finally:
+            model.requires_grad_(False)
+
+
+def grads_of(model, batch):
+    """(loss, {name: grad}) of ``model.loss_fn`` under ``training``."""
+    with training(model):
+        params = dict(model.named_parameters())
+        loss = model.loss_fn(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def assert_grads_close(got, want, rtol=1e-3, atol=1e-4):
+    """Every gradient leaf within ``atol``/``rtol`` of the reference's.
+    ``atol`` counts in units of the leaf's largest gradient where that
+    exceeds 1: the embedding and position tables collect gradients of
+    order 10 (a norm right after a lookup at scale 0.02 multiplies its
+    input's gradient by ~1/std), and fp32 round-off in them grows with
+    that scale, while a row's small entries keep it."""
+    assert set(got) == set(want)
+    for k, g in got.items():
+        ref = np.asarray(want[k], np.float32)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(as_np(g), ref, rtol=rtol,
+                                   atol=atol * scale, err_msg=k)
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """PyTorch's intra-op threads set to ``n`` inside the block. The
+    parity tests' tensors are small and the suite runs in several
+    processes at once: one thread each keeps them from contending for
+    the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
