@@ -116,6 +116,7 @@ they are applied.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -799,6 +800,69 @@ def time_designs(kernel, designs, turns=2):
     return {"kernel": kernel, "designs": {str(d): v for d, v in rec.items()}}
 
 
+LSE_TOL = 1e-4   # K1's lse against the plain one: fp32 sums on both sides
+
+
+def check_decode_lse(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
+                     plan=None):
+    """K1 with ``return_lse`` against its plain version on the same inputs:
+    the output within KERNEL_TOL and bit-equal to the default call's, the
+    rows' log-sum-exp within LSE_TOL (both fp32 sums of the same fp32
+    scores, in other orders), -inf exactly where a row has no position.
+    ``plan`` forces a split of the KV axis (the merge's lse). With
+    ``timed``, the kernel's device time with and without the lse over 32
+    caches, as one decode step walks them."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      split_plan)
+
+    n_layers = 32 if timed else 1
+    q, kc, vc, lens_t = decode_inputs(B, Smax, Hq, Hkv, D, dtype, lens,
+                                      n_layers, seed=SEED + 9)
+    out, lse = decode_attention(q[0], kc[0], vc[0], lens_t, plan=plan,
+                                return_lse=True)
+    default = decode_attention(q[0], kc[0], vc[0], lens_t, plan=plan)
+    want, want_lse = decode_attention_plain(q[0], kc[0], vc[0], lens_t,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    empty = torch.isinf(want_lse)
+    err = max_abs_err(out, want)
+    lse_err = max_abs_err(torch.where(empty, 0.0, lse),
+                          torch.where(empty, 0.0, want_lse))
+    rec = {"case": name, "kernel": "decode_attention", "return_lse": True,
+           "shape": {"B": B, "Smax": Smax, "Hq": Hq, "Hkv": Hkv, "D": D},
+           "dtype": str(dtype).replace("torch.", ""), "lens": lens,
+           "plan": plan or split_plan(
+               B, Hq, Hkv, Smax,
+               torch.cuda.get_device_properties(0).multi_processor_count),
+           "max_abs_err": err, "tol": KERNEL_TOL[dtype],
+           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+           "default_call_bit_equal": bool(torch.equal(out, default))}
+    require(rec["default_call_bit_equal"],
+            f"{name}: the call with lse changed the output")
+    require(err <= KERNEL_TOL[dtype], f"{name}: max_abs_err {err}")
+    require(bool(torch.equal(torch.isinf(lse), empty)
+                 and (lse[empty] < 0).all()),
+            f"{name}: -inf rows differ")
+    require(lse_err <= LSE_TOL, f"{name}: lse max_abs_err {lse_err}")
+    if timed:
+        item = q.element_size()
+        live = sum(min(max(int(n), 0), Smax) for n in lens)
+        nbytes = (2 * live * Hkv * D + 2 * B * Hq * D) * item + 4 * B
+        flops = 4.0 * live * Hq * D
+
+        def run(with_lse):
+            for i in range(n_layers):
+                decode_attention(q[i], kc[i], vc[i], lens_t,
+                                 return_lse=with_lse)
+
+        rec.update(ms=device_ms(lambda: run(True), n_layers),
+                   ms_without_lse=device_ms(lambda: run(False), n_layers),
+                   ms_again=device_ms(lambda: run(True), n_layers),
+                   **bound(nbytes + 4 * B * Hq, flops, PEAK_FLOPS[dtype]))
+    return rec
+
+
 def phase_kernels() -> dict:
     """Returns the timed main-path records, by kernel name."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -926,6 +990,18 @@ def phase_kernels() -> dict:
                      [1500, 1500], split=True),
         check_decode("decode/whisper-self/bf16", 2, 36, 12, 12, 64, bf16,
                      [17, 17]),
+        # K1 with the rows' log-sum-exp, at the shard of the mesh/qwen3-32b
+        # path's sequence-sharded decode: all 64 query heads against one
+        # rank's 256 of the 1024 positions; rows of length 0 (a rank past
+        # the cache's end), the split path's merge, a long split row
+        check_decode_lse("decode-lse/qwen3-shard/bf16", 2, 256, 64, 8, 128,
+                         bf16, [0, 177], timed=True),
+        check_decode_lse("decode-lse/qwen3-shard/fp32", 2, 256, 64, 8, 128,
+                         f32, [256, 0], timed=True),
+        check_decode_lse("decode-lse/split/bf16", 2, 256, 64, 8, 128, bf16,
+                         [0, 177], plan=(2, 128)),
+        check_decode_lse("decode-lse/split/fp32", 4, 2048, 15, 5, 64, f32,
+                         [0, 100, 1500, 2048]),
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
         check_wkv6("wkv6/main/bf16", 1, 256, 64, 64, 64, 64, bf16,
@@ -1965,6 +2041,662 @@ def phase_launch_serve() -> None:
     torch.cuda.empty_cache()
 
 
+# -- mesh paths -----------------------------------------------------------------
+#
+# Each is MESH_RANKS processes spawned from this script (torch.multiprocessing,
+# ``spawn``), all on cuda:0, joined in one gloo group
+# (``repro_torch.launch.mesh.run_ranks``): NCCL refuses two ranks on one
+# device, and gloo stages the CUDA tensors of every collective through host
+# memory. Times here are four processes sharing one H100 over gloo; they
+# say nothing about NVLink or NCCL. A rank's failure fails the run. Each
+# path's yardstick is the port on one device with the same weights, run in
+# this process before the ranks start and freed before they do, so the two
+# copies are never on the card together; its launches are comparisons and
+# are not counted. A rank writes its results and its launch counters to a
+# file; the path's counts are the ranks' sums.
+
+MESH_RANKS = 4
+MESH_TIMEOUT = 480          # seconds a spawn of ranks may take
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+MESH_B, MESH_S = 2, 256     # prefill batch and length
+MESH_START, MESH_STEPS = 240, 32   # decode: cache_len 240 .. 271
+MESH_FP32_TOL = 1e-4        # tests/test_moe.py:156, the reference's bound
+EP_TOL = 2e-2               # tests/test_moe.py:114, the reference's EP bound
+
+
+def run_mesh(tag, fn, *args, world=MESH_RANKS) -> tuple:
+    """``fn(rank, world, out, *args)`` on ``world`` ranks; returns their
+    result files (rank order) and the wall seconds of the spawn."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_ranks
+
+    out = os.path.join(MESH_DIR, f"{tag}-{os.getpid()}-{time.time_ns()}")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    try:
+        run_ranks(fn, world, (out,) + args, timeout=MESH_TIMEOUT,
+                  rendezvous=os.path.join(out, "rendezvous"))
+    except Exception as e:                 # a rank failed: the phase fails
+        raise SmokeFailure(f"{tag}: {type(e).__name__}: {e}") from e
+    wall = time.perf_counter() - t0
+    res = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(out)
+    return res, wall
+
+
+def rank_begin():
+    """A rank's start: cuda:0, the library phase_build built (with
+    ``-Xptxas -v``, so under its own hash: a rank asking for the plain
+    build would compile again), the counters at 0."""
+    torch.cuda.set_device(0)
+    from repro_torch.kernels import build, ops
+    build.load(verbose_ptxas=True)
+    ops.reset_launch_counts()
+
+
+def rank_end(out, rank, rec) -> None:
+    from repro_torch.kernels import ops
+    rec["launches"] = ops.launch_counts()
+    torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
+
+
+def summed_launches(ranks) -> dict:
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+class timed_collectives:
+    """Host seconds inside ``torch.distributed``'s all-reduce and
+    all-gather while active, the device synchronised before each call so
+    that the compute it waits for is not counted (this adds syncs: used on
+    a pass of its own)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.seconds, self.calls, self._saved = 0.0, 0, {}
+        for name in ("all_reduce", "all_gather"):
+            fn = getattr(dist, name)
+            self._saved[name] = fn
+
+            def timed(*a, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return res
+            setattr(dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def mesh_tokens(cfg):
+    g = torch.Generator().manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg.vocab, (MESH_B, MESH_S), generator=g,
+                           dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab, (MESH_B, MESH_STEPS), generator=g,
+                          dtype=torch.int32)
+    return prompt.cuda(), steps.cuda()
+
+
+def seeded_cache(model):
+    """K/V of every layer with the first MESH_START positions drawn from
+    the seed (the same draw on every rank and on one device), the rest 0;
+    on a mesh the rank's part of ``cache_pspecs``."""
+    from repro_torch.compat import torch_dtype
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import sharding as S
+
+    cfg = model.cfg
+    shape = ShapeSpec("mesh", MAX_SEQ, MESH_B, "decode")
+    dims = (cfg.n_layers, MESH_B, MESH_START, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cache = {}
+    for kv in "kv":
+        t = torch.zeros(dims[:2] + (MAX_SEQ,) + dims[3:],
+                        dtype=torch_dtype(cfg.dtype), device="cuda")
+        t[:, :, :MESH_START] = torch.randn(dims, generator=g, device="cuda")
+        if model.mesh is not None:
+            t = S.local_shard(t, model.cache_pspecs(shape)[kv], model.mesh,
+                              kv).contiguous()
+        cache[kv] = t
+    return cache
+
+
+def drive_lm(model, prompt, steps, timed_pass=False) -> dict:
+    """Prefill ``prompt`` (timed twice), then a decode step for each column
+    of ``steps`` from the seeded cache at MESH_START; logits to the host.
+    With ``timed_pass``, 8 more steps with the collectives timed."""
+    rec = {}
+    with torch.inference_mode():
+        for key in ("prefill_s", "prefill_again_s"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model.forward({"tokens": prompt})
+            torch.cuda.synchronize()
+            rec[key] = time.perf_counter() - t0
+        rec["prefill"] = logits.float().cpu()
+        del logits
+        cache = seeded_cache(model)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps.shape[1]):
+            lg, cache = model.decode_step(cache, {
+                "tokens": steps[:, t:t + 1], "cache_len": MESH_START + t})
+            outs.append(lg)
+        torch.cuda.synchronize()
+        rec["decode_ms_per_step"] = (time.perf_counter() - t0) \
+            / steps.shape[1] * 1e3
+        rec["decode"] = torch.stack(outs).float().cpu()
+        if timed_pass:
+            cache = seeded_cache(model)
+            with timed_collectives() as tc:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(8):
+                    model.decode_step(cache, {
+                        "tokens": steps[:, t:t + 1],
+                        "cache_len": MESH_START + t})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rec["collectives"] = {"steps": 8, "calls_per_step": tc.calls / 8,
+                                  "ms_per_step": wall / 8 * 1e3,
+                                  "collective_ms_per_step":
+                                      tc.seconds / 8 * 1e3,
+                                  "share": tc.seconds / wall}
+    return rec
+
+
+def lm_compare(label, got, want, tol, gated=True) -> dict:
+    """Logits of a mesh leg against its yardstick's (the rows ``got``
+    holds: ``rows`` of the batch); greedy agreement beside the error."""
+    rows = got.get("rows", slice(None))
+    out = {"leg": label, "tol": tol}
+    for key in ("prefill", "decode"):
+        if key not in got:
+            continue
+        w = want[key][rows] if key == "prefill" else want[key][:, rows]
+        g = got[key]
+        require(g.shape == w.shape, f"{label}: {key} shape {tuple(g.shape)}")
+        require(bool(torch.isfinite(g).all()), f"{label}: {key} not finite")
+        out[f"{key}_max_abs_err"] = max_abs_err(g, w)
+        out[f"{key}_greedy_agree"] = float(
+            (g.argmax(-1) == w.argmax(-1)).float().mean())
+        if gated:
+            require(out[f"{key}_max_abs_err"] <= tol,
+                    f"{label}: {key} max_abs_err "
+                    f"{out[f'{key}_max_abs_err']} > {tol}")
+    return out
+
+
+def yardstick_lm(cfg, run, prompt, steps, init_kw) -> dict:
+    from repro_torch.models.api import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, run, device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                      **init_kw)
+    rec = drive_lm(model, prompt, steps)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+QWEN3_LEGS = (("fp32-depth2", "float32", 2, MESH_FP32_TOL),
+              ("bf16-depth8", "bfloat16", 8, BF16_TOL))
+
+
+def mesh_qwen3_rank(rank, world, out):
+    """One rank of mesh/qwen3-32b on (data 1, model 4): every leg's
+    tensor-parallel prefill (K2 at 16 local heads) and sequence-sharded
+    decode (K1 with the lse over the rank's 256 positions)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+
+    rank_begin()
+    mesh = S.make_mesh((1, MESH_RANKS), ("data", "model"), "cuda")
+    cfg = get_config("qwen3-32b")
+    prompt, steps = mesh_tokens(cfg)
+    rec = {}
+    for label, dtype, depth, _ in QWEN3_LEGS:
+        torch.cuda.reset_peak_memory_stats()
+        with S.use_mesh(mesh):
+            model = build_model(replace(cfg, n_layers=depth, dtype=dtype),
+                                RunConfig(sharded_decode=True),
+                                device="cuda")
+        model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                          layer_fan_in=True)
+        res = drive_lm(model, prompt, steps, timed_pass=True)
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if rank:
+            res.pop("prefill"), res.pop("decode")
+        rec[label] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    rank_end(out, rank, rec)
+
+
+def phase_mesh_qwen3(cfg) -> dict:
+    """mesh/qwen3-32b at full width (d 5120, 64/8 heads of 128, d_ff 25600,
+    vocab 151936, qk_norm), the reference's own sharded-decode model
+    (tests/test_moe.py:128-162): per leg a prefill forward (B=2, S=256)
+    and 32 decode steps with ``sharded_decode=True`` over a 1024-long cache
+    (256 positions a rank) whose first 240 positions are seeded, so the
+    owner of the written position moves from rank 0 to rank 1 at step 17.
+    fp32 (depth 2) within 1e-4 of one device, bf16 (depth 8) within 0.5
+    with greedy agreement recorded, on per-layer fan-in weights (ROADMAP
+    §C4)."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import RunConfig
+
+    prompt, steps = mesh_tokens(cfg)
+    want = {label: yardstick_lm(replace(cfg, n_layers=depth, dtype=dtype),
+                                RunConfig(), prompt, steps,
+                                {"layer_fan_in": True})
+            for label, dtype, depth, _ in QWEN3_LEGS}
+    ops.reset_launch_counts()             # the yardstick's do not count
+    ranks, wall = run_mesh("qwen3", mesh_qwen3_rank)
+    legs = []
+    for label, dtype, depth, tol in QWEN3_LEGS:
+        got = ranks[0][label]
+        rec = lm_compare(label, got, want[label], tol)
+        rec.update(
+            n_layers=depth, dtype=dtype,
+            ranks={k: [r[label][k] for r in ranks] for k in (
+                "prefill_s", "prefill_again_s", "decode_ms_per_step",
+                "peak_memory_bytes", "collectives")},
+            one_device={k: want[label][k] for k in (
+                "prefill_s", "prefill_again_s", "decode_ms_per_step",
+                "peak_memory_bytes")})
+        legs.append(rec)
+    launches = summed_launches(ranks)
+    emit("mesh", path="mesh/qwen3-32b", mesh={"data": 1, "model": MESH_RANKS},
+         transport="gloo, 4 processes on cuda:0", spawn_wall_s=wall,
+         legs=legs, launches=launches)
+    return launches
+
+
+@contextlib.contextmanager
+def arctic_route_spy():
+    """Wrap ``moe.route`` (looked up by ``_local_moe`` at each call) inside
+    the block, to record per call this shard's assignments and the rows it
+    kept."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def spy(cfg, run_cfg, router, x, *, n_local, n_shards, shard_id):
+        r = route(cfg, run_cfg, router, x, n_local=n_local,
+                  n_shards=n_shards, shard_id=shard_id)
+        first = shard_id * n_local
+        mine = int(((r.top_e >= first) & (r.top_e < first + n_local)).sum())
+        kept = int((r.sel_e < n_local).sum())
+        seen.append({"assignments": mine, "kept": kept,
+                     "dropped": mine - kept, "capacity": len(r.sel_e)})
+        return r
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def mesh_arctic_rank(rank, world, out):
+    """One rank of mesh/arctic-480b: (1, 4) expert-parallel (32 experts a
+    rank) prefill and decode at capacity factor 8, a prefill at 1.25 with
+    the drops recorded, then (2, 2) with FSDP experts."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+
+    rank_begin()
+    cfg = replace(get_config("arctic-480b"), n_layers=1, dtype="float32")
+    prompt, steps = mesh_tokens(cfg)
+    rec = {}
+    mesh = S.make_mesh((1, MESH_RANKS), ("data", "model"), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with S.use_mesh(mesh):
+        model = build_model(cfg, RunConfig(moe_capacity_factor=8.0),
+                            device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                      layer_fan_in=True)
+    rec["ep"] = drive_lm(model, prompt, steps[:, :8], timed_pass=True)
+    rec["ep"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    model.run = replace(model.run, moe_capacity_factor=1.25)
+    with arctic_route_spy() as seen, torch.inference_mode():
+        rec["cf1.25"] = {"prefill": model.forward(
+            {"tokens": prompt}).float().cpu(), "routes": seen}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = S.make_mesh((2, 2), ("data", "model"), "cuda")
+    di = mesh.index("data")
+    with S.use_mesh(mesh):
+        model = build_model(cfg, RunConfig(moe_capacity_factor=8.0,
+                                           fsdp_experts=True,
+                                           data_axes=("data",)),
+                            device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                      layer_fan_in=True)
+    rows = slice(di, di + 1)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.forward({"tokens": prompt[rows]})
+        torch.cuda.synchronize()
+        rec["fsdp"] = {"prefill": logits.float().cpu(), "rows": rows,
+                       "prefill_s": time.perf_counter() - t0,
+                       "expert_bytes": sum(
+                           model.layers[k].numel()
+                           * model.layers[k].element_size()
+                           for k in ("e_gate", "e_up", "e_down"))}
+    if rank:
+        for key in ("ep", "cf1.25"):
+            rec[key].pop("prefill"), rec[key].pop("decode", None)
+    rank_end(out, rank, rec)
+
+
+def phase_mesh_arctic(cfg) -> dict:
+    """mesh/arctic-480b at full width (128 experts of 7168 x 4864, top-2,
+    the dense residual; 56/8 heads of 128), depth 1 in fp32 (a layer is
+    53.6 GB on one device, 13.4 GB a rank): on (1, 4) each rank holds 32
+    experts; prefill (K2 at 14 local heads) and 8 decode steps with
+    ``sharded_decode=False`` (the cache slices gathered, then K1 at 14
+    local heads, a group of 7) at capacity factor 8, within the
+    reference's EP bound 2e-2 of one device; a prefill at 1.25 with each
+    rank's drops recorded (not gated: the capacity T·k/4·1.25 drops other
+    tokens than one device's); a prefill on (2, 2) with FSDP experts (the
+    FF dimension over data, gathered just in time)."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import RunConfig
+
+    cfg = replace(cfg, n_layers=1, dtype="float32")
+    prompt, steps = mesh_tokens(cfg)
+    want = yardstick_lm(cfg, RunConfig(moe_capacity_factor=8.0), prompt,
+                        steps[:, :8], {"layer_fan_in": True})
+    ops.reset_launch_counts()             # the yardstick's do not count
+    ranks, wall = run_mesh("arctic", mesh_arctic_rank)
+    ep = lm_compare("ep-1x4-cf8", ranks[0]["ep"], want, EP_TOL)
+    drops = lm_compare("ep-1x4-cf1.25", ranks[0]["cf1.25"], want, EP_TOL,
+                       gated=False)
+    drops["routes_per_rank"] = [r["cf1.25"]["routes"] for r in ranks]
+    fsdp = []
+    for r in ranks:
+        rec = lm_compare("fsdp-2x2-cf8", r["fsdp"], want, EP_TOL)
+        rec.update(prefill_s=r["fsdp"]["prefill_s"],
+                   expert_bytes_per_rank=r["fsdp"]["expert_bytes"])
+        fsdp.append(rec)
+    ep.update(ranks={k: [r["ep"][k] for r in ranks] for k in (
+        "prefill_s", "prefill_again_s", "decode_ms_per_step",
+        "peak_memory_bytes", "collectives")},
+        one_device={k: want[k] for k in (
+            "prefill_s", "prefill_again_s", "decode_ms_per_step",
+            "peak_memory_bytes")})
+    launches = summed_launches(ranks)
+    emit("mesh", path="mesh/arctic-480b", n_layers=1, dtype="float32",
+         transport="gloo, 4 processes on cuda:0", spawn_wall_s=wall, ep=ep,
+         capacity_1_25=drops, fsdp=fsdp, launches=launches)
+    return launches
+
+
+MESH_TRAIN_STEPS = 10
+EQUIV_STEPS, EQUIV_CKPT = 4, 2     # fp32 depth-4 steps; checkpoint after 2
+
+
+def equiv_trainer(cfg, mesh=None, zero1=True):
+    """The fp32 depth-4 trainer of the equivalence legs, on per-layer
+    fan-in weights (as ``accum_equivalence``): the same draw everywhere."""
+    from repro_torch.launch.train import Trainer, run_config
+
+    tr = Trainer(cfg, run_config(zero1=zero1), seq=TRAIN_SEQ,
+                 batch=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED, device="cuda",
+                 mesh=mesh)
+    tr.model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         layer_fan_in=True)
+    return tr
+
+
+def host_params(tr) -> dict:
+    """A host copy of the trainer's parameters (they update in place)."""
+    return {k: p.detach().to("cpu", torch.float32, copy=True)
+            for k, p in tr.params.items()}
+
+
+def mesh_train_rank(rank, world, out, ckpt):
+    """One rank of mesh/train-smollm-360m on (4, 1) with ZeRO-1: the bf16
+    run at full width and depth, then the fp32 depth-4 equivalence legs
+    (ZeRO-1 saving a checkpoint after step 2, and plain data parallelism)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import Trainer, run_config
+
+    rank_begin()
+    mesh = make_local_mesh(device_type="cuda")
+    cfg = get_config("smollm-360m")
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, run_config(zero1=True), seq=TRAIN_SEQ,
+                 batch=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED, device="cuda",
+                 mesh=mesh)
+    losses, gnorms, step_s = [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(i)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    rec["bf16"] = {"losses": losses, "grad_norms": gnorms,
+                   "step_s": step_s, "moment_bytes": tr.moment_bytes(),
+                   "params": sum(p.numel() for p in tr.params.values()),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    with timed_collectives() as tc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step(MESH_TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+    rec["bf16"]["collectives"] = {"step_s": wall, "collective_s": tc.seconds,
+                                  "calls": tc.calls,
+                                  "share": tc.seconds / wall}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = replace(cfg, n_layers=4, dtype="float32")
+    for zero1 in (True, False):
+        tr = equiv_trainer(small, mesh, zero1)
+        res = {"losses": []}
+        for i in range(EQUIV_STEPS):
+            res["losses"].append(float(tr.step(i)["loss"]))
+            if i + 1 == 1:
+                res["params1"] = host_params(tr)
+            if zero1 and i + 1 == EQUIV_CKPT:
+                tr.save(ckpt, EQUIV_CKPT)
+        res["params"] = host_params(tr)
+        res["moment_bytes"] = tr.moment_bytes()
+        rec["zero1" if zero1 else "dp"] = res
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank:
+        for key in ("zero1", "dp"):
+            rec[key].pop("params1"), rec[key].pop("params")
+    rank_end(out, rank, rec)
+
+
+def mesh_resume_rank(rank, world, out, ckpt):
+    """One rank of the (2, 1) restart: the (4, 1) checkpoint restored into
+    a ZeRO-1 trainer on this mesh (each rank reads its slice), then the
+    remaining steps."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+
+    rank_begin()
+    mesh = make_local_mesh(device_type="cuda")
+    small = replace(get_config("smollm-360m"), n_layers=4, dtype="float32")
+    tr = equiv_trainer(small, mesh)
+    t0 = time.perf_counter()
+    at = tr.restore(ckpt)
+    rec = {"restored_at": at, "restore_s": time.perf_counter() - t0,
+           "losses": [float(tr.step(i)["loss"])
+                      for i in range(at, EQUIV_STEPS)],
+           "moment_bytes": tr.moment_bytes()}
+    if rank == 0:
+        rec["params"] = host_params(tr)
+    rank_end(out, rank, rec)
+
+
+def params_within(got, want, tight=None) -> dict:
+    """Elements of ``got`` outside atol 1e-4 / rtol 1e-3 of ``want``,
+    counted over all and, with ``tight`` (per leaf, where the gradient is
+    at least 100 · AdamW's eps), over those only."""
+    out = {"outside": 0, "outside_tight": 0, "max_abs_diff": 0.0}
+    for k, w in want.items():
+        over = (got[k] - w).abs() > 1e-4 + 1e-3 * w.abs()
+        out["outside"] += int(over.sum())
+        out["max_abs_diff"] = max(out["max_abs_diff"],
+                                  float((got[k] - w).abs().max()))
+        if tight is not None:
+            out["outside_tight"] += int((over & tight[k]).sum())
+    return out
+
+
+def phase_mesh_train(cfg) -> dict:
+    """mesh/train-smollm-360m on (4, 1) with ZeRO-1: MESH_TRAIN_STEPS steps
+    at full width and depth in bf16 (batch 8 x 256, 2 rows a rank, lr
+    3e-3): the loss falls, nothing is NaN, the kernel counters read 0; each
+    rank's moment bytes against one device's. At fp32 depth 4 on
+    per-layer fan-in weights, ZeRO-1 against the single-device trainer on
+    the same batches and against plain data parallelism on the same mesh:
+    the loss within rtol 1e-5 at every step, the parameters after the
+    first step within atol 1e-4 / rtol 1e-3 wherever the gradient is at
+    least 100 · eps (``accum_pair``'s split: below it AdamW's first update
+    g / (|g| + eps) turns a 1e-9 change of g into a fraction of lr), the
+    later steps recorded, as is whether ZeRO-1 and plain data parallelism
+    are bit-equal (the gradients' reductions are not bit-reproducible on
+    the card). A checkpoint saved on (4, 1) after step 2, restored on
+    (2, 1) and resumed: its losses follow the uninterrupted run within
+    rtol 1e-5."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.train.train_step import loss_and_grads
+
+    small = replace(cfg, n_layers=4, dtype="float32")
+    one = equiv_trainer(small, zero1=False)
+    _, grads = loss_and_grads(one.model, one.stream.batch_at(0))
+    tight = {k: (g.detach().float().abs() >= 100 * ADAMW_EPS).cpu()
+             for k, g in grads.items()}
+    del grads
+    one_losses, one_params = [], []
+    for i in range(EQUIV_STEPS):
+        one_losses.append(float(one.step(i)["loss"]))
+        one_params.append(host_params(one))
+    one_moment_bytes = sum(p.numel() * 8 for p in one.params.values())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(MESH_DIR, f"train-ckpt-{os.getpid()}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ranks, wall = run_mesh("train", mesh_train_rank, ckpt)
+    resumed, resume_wall = run_mesh("resume", mesh_resume_rank, ckpt,
+                                    world=2)
+    shutil.rmtree(ckpt)
+
+    bf16 = [r["bf16"] for r in ranks]
+    losses = bf16[0]["losses"]
+    require(all(math.isfinite(x) for r in bf16
+                for x in r["losses"] + r["grad_norms"]),
+            "mesh train: non-finite loss or grad norm")
+    require(all(r["losses"] == losses for r in bf16),
+            "mesh train: the ranks' losses differ")
+    require(losses[-1] < losses[0], f"mesh train: loss did not fall: "
+                                    f"{losses}")
+    full_moments = 8 * bf16[0]["params"]
+    z, dp = ranks[0]["zero1"], ranks[0]["dp"]
+    for other, ref in (("one device", one_losses), ("plain DP",
+                                                    dp["losses"])):
+        for i, (a, b) in enumerate(zip(z["losses"], ref)):
+            require(abs(a - b) <= 1e-5 * abs(b),
+                    f"ZeRO-1 step {i + 1} loss {a} vs {other} {b}")
+    step1 = params_within(z["params1"], one_params[0], tight)
+    step1_dp = params_within(z["params1"], dp["params1"], tight)
+    for name, rec in (("one device", step1), ("plain DP", step1_dp)):
+        require(rec["outside_tight"] == 0,
+                f"ZeRO-1 step 1 parameters vs {name}: {rec}")
+    r0 = resumed[0]
+    require(all(r["restored_at"] == EQUIV_CKPT for r in resumed),
+            "restored step")
+    for a, b in zip(r0["losses"], z["losses"][EQUIV_CKPT:]):
+        require(abs(a - b) <= 1e-5 * abs(b),
+                f"resumed loss {a} vs uninterrupted {b}")
+    emit("mesh", path="mesh/train-smollm-360m",
+         mesh={"data": MESH_RANKS, "model": 1}, zero1=True,
+         transport="gloo, 4 processes on cuda:0", spawn_wall_s=wall,
+         bf16={"n_layers": cfg.n_layers, "steps": MESH_TRAIN_STEPS,
+               "batch": TRAIN_BATCH, "rows_per_rank":
+                   TRAIN_BATCH // MESH_RANKS, "seq": TRAIN_SEQ,
+               "lr": TRAIN_LR, "losses": losses,
+               "grad_norms": bf16[0]["grad_norms"],
+               "step_s_per_rank": [r["step_s"] for r in bf16],
+               "steady_step_s": sorted(bf16[0]["step_s"][2:])[
+                   len(bf16[0]["step_s"][2:]) // 2],
+               "moment_bytes_per_rank": [r["moment_bytes"] for r in bf16],
+               "moment_bytes_one_device": full_moments,
+               "moment_share": [r["moment_bytes"] / full_moments
+                                for r in bf16],
+               "peak_memory_bytes": [r["peak_memory_bytes"] for r in bf16],
+               "collectives": [r["collectives"] for r in bf16]},
+         fp32_depth4={"losses_zero1": z["losses"], "losses_dp": dp["losses"],
+                      "losses_one_device": one_losses,
+                      "zero1_equals_dp_bitwise": z["losses"] == dp["losses"]
+                      and all(torch.equal(z["params"][k], dp["params"][k])
+                              for k in z["params"]),
+                      "step1_vs_one_device": step1,
+                      "step1_vs_dp": step1_dp,
+                      "step4_vs_one_device": params_within(
+                          z["params"], one_params[-1], tight),
+                      "step4_vs_dp": params_within(z["params"], dp["params"],
+                                                   tight),
+                      "moment_bytes_zero1_rank0": z["moment_bytes"],
+                      "moment_bytes_dp_rank0": dp["moment_bytes"],
+                      "moment_bytes_one_device": one_moment_bytes},
+         resume={"mesh": {"data": 2, "model": 1}, "spawn_wall_s":
+                 resume_wall, "restored_at": r0["restored_at"],
+                 "restore_s": [r["restore_s"] for r in resumed],
+                 "losses": r0["losses"],
+                 "losses_uninterrupted": z["losses"][EQUIV_CKPT:],
+                 "params_vs_uninterrupted": params_within(
+                     r0["params"], z["params"], tight)})
+    return summed_launches(ranks + resumed)
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1989,8 +2721,13 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 # training runs the plain forms: these must launch nothing
                 "train/smollm-360m": (),
                 "train/whisper-small": (),
-                "launch/serve": ("decode_attention",)}
-NO_KERNEL_PATHS = ("train/smollm-360m", "train/whisper-small")
+                "launch/serve": ("decode_attention",),
+                # four ranks on cuda:0 over gloo; the counts are the ranks'
+                "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
+                "mesh/arctic-480b": ("decode_attention", "flash_attention"),
+                "mesh/train-smollm-360m": ()}
+NO_KERNEL_PATHS = ("train/smollm-360m", "train/whisper-small",
+                   "mesh/train-smollm-360m")
 
 
 def run_path(name, serve_records) -> dict:
@@ -2004,10 +2741,19 @@ def run_path(name, serve_records) -> dict:
     from repro_torch.kernels import ops
 
     head, _, tail = name.partition("/")
-    cfg = get_config(tail if head in ("train", "launch") else head) \
-        if name != "launch/serve" else None
+    cname = {"launch/serve": None,
+             "mesh/train-smollm-360m": "smollm-360m"}.get(
+        name, tail if head in ("train", "launch", "mesh") else head)
+    cfg = get_config(cname) if cname else None
     ops.reset_launch_counts()
-    if name == "smollm-360m":
+    mesh_phase = {"mesh/qwen3-32b": phase_mesh_qwen3,
+                  "mesh/arctic-480b": phase_mesh_arctic,
+                  "mesh/train-smollm-360m": phase_mesh_train}.get(name)
+    if mesh_phase is not None:
+        counts = mesh_phase(cfg)
+        require(not any(ops.launch_counts().values()),
+                f"{name}: this process launched kernels")
+    elif name == "smollm-360m":
         phase_model(cfg, fp32_depth=4)
         serve_records[name] = phase_serve(cfg)
     elif name == "rwkv6-7b":
@@ -2039,7 +2785,8 @@ def run_path(name, serve_records) -> dict:
         phase_train_whisper(cfg)
     else:
         phase_launch_serve()
-    counts = ops.launch_counts()
+    if mesh_phase is None:
+        counts = ops.launch_counts()
     for k in PATH_KERNELS[name]:
         require(counts[k] > 0, f"{name}: the path never launched {k}")
     if name in NO_KERNEL_PATHS:

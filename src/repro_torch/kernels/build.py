@@ -133,7 +133,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_decode_attention.restype = ci
     lib.repro_decode_attention.argtypes = [
-        vp, vp, vp, vp, vp,          # q, k_cache, v_cache, lens, out
+        vp, vp, vp, vp, vp, vp,      # q, k_cache, v_cache, lens, out, lse
         vp, vp,                      # split partials, split counters
         ci, ci, ci, ci, ci,          # B, Smax, Hq, Hkv, D
         ci, ci,                      # nsplit, chunk

@@ -138,6 +138,12 @@ template <typename T, int D> struct VRow {
   }
 };
 
+// The row's log-sum-exp of the scaled scores from its final softmax state
+// (maximum m, denominator l): -inf for a row with no position.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0xff800000u);
+}
+
 // Block (b * nsplit + s, hk, z) takes query heads h0 .. h0 + G - 1 of KV
 // head hk over split s of row b. part holds, per (row, KV head, group,
 // split), G * D accumulators, then G maxima, then G denominators.
@@ -145,7 +151,8 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(NW * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ lens,
-                        T* __restrict__ out, float* __restrict__ part,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part,
                         int* __restrict__ counters, int Smax, int Hq, int Hkv,
                         int nsplit, int chunk, float scale) {
   using V = VRow<T, D>;
@@ -317,6 +324,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     if (live == 1) {
       out[((size_t)b * Hq + h0 + gi) * D + d] =
           from_f32<T>(aa / fmaxf(ll, 1e-20f));
+      if (lse != nullptr && d == 0)
+        lse[(size_t)b * Hq + h0 + gi] = row_lse(mm, ll);
     } else {
       mine[idx] = aa;
       if (d == 0) {
@@ -367,7 +376,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       ll += __shfl_xor_sync(FULL, ll, off);
-    if (lane == 0) sm_den[gi] = fmaxf(ll, 1e-20f);
+    if (lane == 0) {
+      sm_den[gi] = fmaxf(ll, 1e-20f);
+      if (lse != nullptr) lse[(size_t)b * Hq + h0 + gi] = row_lse(mm, ll);
+    }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
@@ -397,8 +409,8 @@ inline int heads_per_block(int g) {
 
 template <typename T, int D>
 int launch_d(const void* q, const void* kc, const void* vc, const void* lens,
-             void* out, void* part, void* counters, int B, int Smax, int Hq,
-             int Hkv, int nsplit, int chunk, float scale,
+             void* out, void* lse, void* part, void* counters, int B,
+             int Smax, int Hq, int Hkv, int nsplit, int chunk, float scale,
              cudaStream_t stream) {
   const int g = Hq / Hkv, G = heads_per_block(g);
   dim3 grid(B * nsplit, Hkv, g / G), block(NW * 32);
@@ -407,7 +419,8 @@ int launch_d(const void* q, const void* kc, const void* vc, const void* lens,
     decode_attention_kernel<T, D, GG><<<grid, block, 0, stream>>>(           \
         static_cast<const T*>(q), static_cast<const T*>(kc),                 \
         static_cast<const T*>(vc), static_cast<const int*>(lens),            \
-        static_cast<T*>(out), static_cast<float*>(part),                     \
+        static_cast<T*>(out), static_cast<float*>(lse),                      \
+        static_cast<float*>(part),                                           \
         static_cast<int*>(counters), Smax, Hq, Hkv, nsplit, chunk, scale);   \
     break;
   switch (G) {
@@ -426,22 +439,23 @@ int launch_d(const void* q, const void* kc, const void* vc, const void* lens,
 
 template <typename T>
 int launch(const void* q, const void* kc, const void* vc, const void* lens,
-           void* out, void* part, void* counters, int B, int Smax, int Hq,
+           void* out, void* lse, void* part, void* counters, int B, int Smax,
+           int Hq,
            int Hkv, int D, int nsplit, int chunk, float scale,
            cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, kc, vc, lens, out, part, counters, B, Smax,
-                             Hq, Hkv, nsplit, chunk, scale, stream);
+      return launch_d<T, 32>(q, kc, vc, lens, out, lse, part, counters, B,
+                             Smax, Hq, Hkv, nsplit, chunk, scale, stream);
     case 64:
-      return launch_d<T, 64>(q, kc, vc, lens, out, part, counters, B, Smax,
-                             Hq, Hkv, nsplit, chunk, scale, stream);
+      return launch_d<T, 64>(q, kc, vc, lens, out, lse, part, counters, B,
+                             Smax, Hq, Hkv, nsplit, chunk, scale, stream);
     case 80:
-      return launch_d<T, 80>(q, kc, vc, lens, out, part, counters, B, Smax,
-                             Hq, Hkv, nsplit, chunk, scale, stream);
+      return launch_d<T, 80>(q, kc, vc, lens, out, lse, part, counters, B,
+                             Smax, Hq, Hkv, nsplit, chunk, scale, stream);
     case 128:
-      return launch_d<T, 128>(q, kc, vc, lens, out, part, counters, B, Smax,
-                              Hq, Hkv, nsplit, chunk, scale, stream);
+      return launch_d<T, 128>(q, kc, vc, lens, out, lse, part, counters, B,
+                              Smax, Hq, Hkv, nsplit, chunk, scale, stream);
     default:
       return -1;
   }
@@ -450,7 +464,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
 }  // namespace
 
 // q (B,1,Hq,D), caches (B,Smax,Hkv,D), lens (B,) int32, out (B,1,Hq,D); all
-// contiguous device pointers. Split s of a row covers positions
+// contiguous device pointers. lse, when not null, is (B,Hq) fp32 and gets
+// each row's log-sum-exp of the scaled scores (m + log l), -inf for a row of
+// length 0: what a caller merging partial attentions over several caches
+// needs beside out. Split s of a row covers positions
 // [s * chunk, (s + 1) * chunk); the nsplit <= 64 splits must cover
 // [0, Smax). With nsplit > 1, part is fp32 scratch of
 // B * Hq * nsplit * (D + 2) floats and counters B * Hq int32 that are 0 on
@@ -459,10 +476,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens,
 // does not take.
 extern "C" int repro_decode_attention(const void* q, const void* kc,
                                       const void* vc, const void* lens,
-                                      void* out, void* part, void* counters,
-                                      int B, int Smax, int Hq, int Hkv, int D,
-                                      int nsplit, int chunk, int is_bf16,
-                                      float scale, void* stream) {
+                                      void* out, void* lse, void* part,
+                                      void* counters, int B, int Smax, int Hq,
+                                      int Hkv, int D, int nsplit, int chunk,
+                                      int is_bf16, float scale, void* stream) {
   if (B <= 0 || Smax <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 ||
       Hkv > 65535 || nsplit <= 0 || nsplit > MAX_SPLIT || chunk <= 0 ||
       (long long)nsplit * chunk < Smax ||
@@ -472,8 +489,8 @@ extern "C" int repro_decode_attention(const void* q, const void* kc,
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch<__nv_bfloat16>(q, kc, vc, lens, out, part, counters, B, Smax,
-                              Hq, Hkv, D, nsplit, chunk, scale, s)
-      : launch<float>(q, kc, vc, lens, out, part, counters, B, Smax, Hq, Hkv,
-                      D, nsplit, chunk, scale, s);
+      ? launch<__nv_bfloat16>(q, kc, vc, lens, out, lse, part, counters, B,
+                              Smax, Hq, Hkv, D, nsplit, chunk, scale, s)
+      : launch<float>(q, kc, vc, lens, out, lse, part, counters, B, Smax, Hq,
+                      Hkv, D, nsplit, chunk, scale, s);
 }

@@ -17,6 +17,12 @@ length per batch row, what continuous batching passes). The lengths stay on
 the device: the kernel's split of the KV axis over blocks (``split_plan``)
 is chosen from the shapes alone, so a call never waits for the card.
 
+With ``return_lse=True`` both also return each row's log-sum-exp of the
+scaled scores, ``(B, Hq)`` in fp32 (``m + log l`` of the row's final
+softmax state; ``-inf`` for a row of length 0): what a caller needs to merge
+partial attentions over several slices of one cache, as the sequence-sharded
+decode (``models/distributed_attention.py``) does across ranks.
+
 A row with ``cache_len == 0`` yields zeros, in the kernel and in the plain
 version alike. That follows the Pallas body, which skips every block and
 divides a zero accumulator by ``max(l, 1e-20)``; ``decode_attention_jnp``
@@ -113,9 +119,11 @@ def _lens_tensor(cache_len, b: int, device) -> torch.Tensor:
     return lens.contiguous()
 
 
-def decode_attention_plain(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+def decode_attention_plain(q, k_cache, v_cache, cache_len,
+                           return_lse: bool = False):
     """q: (B, 1, Hq, D); caches: (B, Smax, Hkv, D); cache_len scalar or (B,).
-    GQA-native masked softmax in fp32; output in q's dtype."""
+    GQA-native masked softmax in fp32; output in q's dtype. With
+    ``return_lse`` also the rows' log-sum-exp, (B, Hq) fp32."""
     b, _, hq, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -129,7 +137,12 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v_cache.float())
     out = out * (lens > 0).to(out.dtype)[:, None, None, None, None]
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    out = out.reshape(b, 1, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    live = torch.where(mask[:, None, None, None, :], s,
+                       torch.full_like(s, -math.inf))
+    return out, torch.logsumexp(live, dim=-1).reshape(b, hq)
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -156,14 +169,16 @@ def _check(q, k_cache, v_cache) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def decode_attention(q, k_cache, v_cache, cache_len,
-                     plan=None) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, plan=None,
+                     return_lse: bool = False):
     """Kernel on CUDA tensors, plain version on CPU tensors. ``plan``
     overrides ``split_plan``'s ``(nsplit, chunk)`` (for measuring the
-    kernel); the plain version ignores it."""
+    kernel); the plain version ignores it. With ``return_lse`` the result
+    is ``(out, lse)``."""
     build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     _check(q, k_cache, v_cache)
@@ -171,6 +186,8 @@ def decode_attention(q, k_cache, v_cache, cache_len,
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     lens = _lens_tensor(cache_len, b, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     nsplit, chunk = plan or split_plan(b, hq, hkv, smax,
                                        _sm_count(_index(q.device)))
     part = counters = None
@@ -183,6 +200,7 @@ def decode_attention(q, k_cache, v_cache, cache_len,
         code = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(),
             b, smax, hq, hkv, d, nsplit, chunk,
@@ -190,7 +208,7 @@ def decode_attention(q, k_cache, v_cache, cache_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(lib, code, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

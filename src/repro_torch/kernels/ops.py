@@ -52,13 +52,17 @@ def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
     raise ValueError(impl)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, impl="kernel"):
+def decode_attention(q, k_cache, v_cache, cache_len, impl="kernel",
+                     return_lse=False):
     if impl == "kernel":
-        return _decode_kernel(q, k_cache, v_cache, cache_len)
+        return _decode_kernel(q, k_cache, v_cache, cache_len,
+                              return_lse=return_lse)
     if impl == "plain":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      return_lse)
     if impl == "reference":
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        return_lse)
     raise ValueError(impl)
 
 

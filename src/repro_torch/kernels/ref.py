@@ -15,9 +15,9 @@ def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
     return attention_reference(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def decode_attention_ref(q, k_cache, v_cache, cache_len):
+def decode_attention_ref(q, k_cache, v_cache, cache_len, return_lse=False):
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    return decode_attention_plain(q, k_cache, v_cache, cache_len, return_lse)
 
 
 # -- RWKV6 (Finch) WKV recurrence ---------------------------------------------

@@ -1,43 +1,57 @@
-"""Training launcher: any assigned architecture on one device, with
-checkpoint/restart.
+"""Training launcher: any assigned architecture, data-parallel over a mesh,
+with checkpoint/restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
-        --reduced --steps 100 [--resume] [--grad-accum 4] [--compress] \
-        [--device cuda|cpu]
+        --reduced --steps 100 [--resume] [--zero1] [--grad-accum 4] \
+        [--compress] [--device cuda|cpu]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --zero1
 
 Counterpart of ``repro.launch.train``: the same arguments and printed lines,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the same path on the
-host). The ``RunConfig`` is built here (q/kv chunk 64, ``seq_chunk`` 16,
+host). The mesh is the reference's ``make_local_mesh()``: ``(world, 1)``
+over the default process group, which this launcher initialises over gloo
+from ``torchrun``'s environment (``env://``), or as a group of one process
+(the mesh ``(1, 1)``) when started alone. Each rank trains on its rows of
+the batch; ``--zero1`` shards the optimizer's moments over the data axis.
+The ``RunConfig`` is built here (q/kv chunk 64, ``seq_chunk`` 16,
 ``attn_impl="plain"``: gradients pass through the plain attention and
-recurrence forms, the kernels have none); the mesh and
-``launch/steps.py`` belong to the sharded path (ROADMAP A14), and
-``--zero1`` raises until ZeRO-1 is ported (ROADMAP A13). Checkpoints are
-written every ``--ckpt-every`` steps in the background and once at the
-end; ``--resume`` continues from the newest one, with the same data order
-(the stream is indexed by step).
+recurrence forms, the kernels have none); ``launch/steps.py`` is ROADMAP
+A14. Checkpoints are written every ``--ckpt-every`` steps in the
+background and once at the end, by rank 0, with every leaf gathered to its
+global shape; ``--resume`` continues from the newest one, onto whatever
+mesh this run has, with the same data order (the stream is indexed by
+step).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import resolve_device, sync
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig, build_model
-from repro_torch.train.checkpoint import (latest_step, restore_checkpoint,
-                                          save_checkpoint)
+from repro_torch.train.checkpoint import (latest_step, named_shardings,
+                                          restore_checkpoint, save_checkpoint)
 from repro_torch.train.data import ZipfLMStream
 from repro_torch.train.optimizer import adamw_init
-from repro_torch.train.train_step import make_train_step, trainable
+from repro_torch.train.train_step import (make_train_step, optimizer_pspecs,
+                                          trainable)
 
 
-def run_config(grad_accum: int = 1, compress: bool = False) -> RunConfig:
+def run_config(grad_accum: int = 1, compress: bool = False,
+               zero1: bool = False) -> RunConfig:
     return RunConfig(attn_impl="plain", q_chunk=64, kv_chunk=64,
                      seq_chunk=16, grad_accum=grad_accum,
-                     grad_compress=compress)
+                     grad_compress=compress, use_zero1=zero1,
+                     data_axes=("data",))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -61,30 +75,56 @@ def parser() -> argparse.ArgumentParser:
 
 
 class Trainer:
-    """One model, its optimizer state and data stream on one device: what
-    ``main`` drives, and what a caller that wants the step itself (and its
-    timings) drives directly."""
+    """One model, its optimizer state and data stream: on one device, or,
+    with ``mesh``, this rank's part of a data-parallel run (the parameters
+    whole on every rank, the batch split, the moments sharded under
+    ``RunConfig.use_zero1``). What ``main`` drives, and what a caller that
+    wants the step itself (and its timings) drives directly."""
 
     def __init__(self, cfg, run: RunConfig, *, seq: int, batch: int,
-                 lr: float, seed: int = 0, device=None):
+                 lr: float, seed: int = 0, device=None,
+                 mesh: Optional[S.Mesh] = None):
         self.device = resolve_device(device)
-        self.cfg, self.seq, self.batch = cfg, seq, batch
-        self.model = build_model(cfg, run, device=self.device)
+        self.cfg, self.seq, self.batch, self.mesh = cfg, seq, batch, mesh
+        with S.use_mesh(mesh):
+            self.model = build_model(cfg, run, device=self.device)
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(seed))
         self.params = trainable(self.model)
-        self.opt = adamw_init(self.params)
-        self.step_fn = make_train_step(self.model, lr=lr)
+        self.pspecs = optimizer_pspecs(self.model) if mesh is not None \
+            else None
+        self.opt = adamw_init(self.params) if mesh is None else adamw_init(
+            self.params, self.model.param_pspecs(), self.pspecs.mu, mesh)
+        self.step_fn = make_train_step(self.model, lr=lr, mesh=mesh)
         self.stream = ZipfLMStream(vocab=cfg.vocab, seq=seq, batch=batch,
                                    seed=seed + 1, device=self.device)
 
     def state(self) -> dict:
         return {"params": self.params, "opt": self.opt}
 
+    def shardings(self):
+        """The state's layout on the mesh (None on one device)."""
+        if self.mesh is None:
+            return None
+        return named_shardings({"params": self.model.param_pspecs(),
+                                "opt": self.pspecs}, self.mesh)
+
+    def moment_bytes(self) -> int:
+        """Bytes of optimizer moments this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for tree in (self.opt.mu, self.opt.nu)
+                   for t in tree.values())
+
+    def save(self, ckpt_dir: str, step: int, async_save: bool = False):
+        return save_checkpoint(ckpt_dir, step, self.state(),
+                               async_save=async_save,
+                               shardings=self.shardings())
+
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
         """Load a checkpoint into the live parameters and optimizer state;
         returns its step."""
-        state, at = restore_checkpoint(ckpt_dir, step, self.state())
+        state, at = restore_checkpoint(ckpt_dir, step, self.state(),
+                                       shardings=self.shardings())
         with torch.no_grad():
             for k, p in self.params.items():
                 p.copy_(state["params"][k])
@@ -99,26 +139,56 @@ class Trainer:
         return m
 
 
+@contextlib.contextmanager
+def process_group():
+    """The default process group: ``torchrun``'s (``env://``) when its
+    environment is set, else a group of this one process; torn down on the
+    way out if this made it. A group the caller made is used as it is."""
+    if dist.is_initialized():
+        yield
+        return
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group("gloo", init_method="env://")
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parser().parse_args(argv)
-    if args.zero1:
-        raise NotImplementedError(
-            "--zero1 (optimizer state sharded over the data axes) is not "
-            "ported yet: ROADMAP A13")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=4, d_model=128, n_heads=4, d_ff=384,
                           vocab=2048)
-    tr = Trainer(cfg, run_config(args.grad_accum, args.compress),
+    device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        device = resolve_device(None)
+    with process_group():
+        mesh = make_local_mesh(device_type=device.type)
+        return _train(args, cfg, mesh, device)
+
+
+def _train(args, cfg, mesh, device) -> dict:
+    tr = Trainer(cfg, run_config(args.grad_accum, args.compress, args.zero1),
                  seq=args.seq, batch=args.batch, lr=args.lr, seed=args.seed,
-                 device=args.device)
+                 device=device, mesh=mesh)
+    lead = dist.get_rank() == 0
     n = sum(p.numel() for p in tr.params.values())
-    print(f"[train] {cfg.name}: {n/1e6:.1f}M params on {tr.device}")
+    if lead:
+        print(f"[train] {cfg.name}: {n/1e6:.1f}M params on {tr.device}, "
+              f"mesh {mesh.shape}")
 
     start = 0
     if args.resume and latest_step(args.ckpt_dir) is not None:
         start = tr.restore(args.ckpt_dir)
-        print(f"[train] resumed from step {start}")
+        if lead:
+            print(f"[train] resumed from step {start}")
 
     losses, writer = [], None
     t0 = time.time()
@@ -128,20 +198,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if (i + 1) % args.ckpt_every == 0:
             if writer is not None:
                 writer.join()
-            writer = save_checkpoint(args.ckpt_dir, i + 1, tr.state(),
-                                     async_save=True)
+            writer = tr.save(args.ckpt_dir, i + 1, async_save=True)
         if (i + 1) % 20 == 0:
             sync(tr.device)
             tps = args.batch * args.seq * 20 / (time.time() - t0)
             t0 = time.time()
-            print(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(m['grad_norm']):.2f} {tps:,.0f} tok/s")
+            if lead:
+                print(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
+                      f"gnorm {float(m['grad_norm']):.2f} {tps:,.0f} tok/s")
     if writer is not None:
         writer.join()
     end = start + args.steps
     if end % args.ckpt_every:          # else the last async save holds it
-        save_checkpoint(args.ckpt_dir, end, tr.state())
-    print(f"[train] done at step {end}")
+        tr.save(args.ckpt_dir, end)
+    dist.barrier()                     # every rank sees the files written
+    if lead:
+        print(f"[train] done at step {end}")
     return {"start": start, "end": end, "losses": losses, "trainer": tr}
 
 

@@ -26,8 +26,10 @@ from repro_torch.configs.base import ArchConfig
 class RunConfig:
     """Execution knobs (orthogonal to the architecture). Same fields as the
     reference so one (ArchConfig, RunConfig) pair keys both packages; the
-    fields that steer scan/remat/sharding are carried but not read yet.
-    One default differs: ``seq_chunk``."""
+    mesh's fields (``data_axes``, ``model_axis``, ``sharded_decode``,
+    ``fsdp_experts``, ``use_zero1``) are read on a mesh, the fields that
+    steer scan and remat are carried but not read. One default differs:
+    ``seq_chunk``."""
 
     attn_impl: str = "kernel"     # kernel | plain | reference
     q_chunk: int = 512

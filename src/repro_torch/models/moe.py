@@ -19,8 +19,18 @@ Counterpart of ``repro.models.moe``. Same parameter keys and stacked shapes
      projection, the renormalised weights, an fp32 ``index_add_`` back to
      the token positions.
 
-One device only: ``moe_ffn`` runs the local path with ``n_shards = 1``; the
-expert-parallel ``shard_map``/``psum``/FSDP branch is not ported yet.
+On a mesh (``moe_ffn(..., mesh=)`` with a model axis of more than one
+rank) the experts are sharded over the model axis and the router is
+replicated, as in the reference's ``shard_map``: each rank routes every
+local token, packs the assignments that target its own experts up to the
+capacity ``C = T·k / n_shards · cf`` (overflow drops, so the kept tokens
+differ from one device's), runs its experts and returns a partial output
+that a ``psum`` over the model axis completes. With
+``RunConfig.fsdp_experts`` the experts' FF dimension is also sharded over
+the data axes and all-gathered just in time, per layer, a few experts at a
+time (``EXPERT_GATHER_BYTES`` bounds what a rank holds gathered: at arctic's
+width one expert's three matrices are 209 MB in bf16). arctic's dense
+residual runs tensor-parallel (columns, rows, ``psum``) beside it.
 """
 from __future__ import annotations
 
@@ -35,6 +45,10 @@ import torch.nn.functional as F
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
+from repro_torch.models.sharding import P
+
+EXPERT_GATHER_BYTES = 1 << 30   # gathered expert weights a rank holds at once
 
 
 def moe_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
@@ -56,20 +70,42 @@ def moe_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
     return out
 
 
+def moe_param_pspecs(cfg: ArchConfig, m: str,
+                     fsdp_axes=None) -> Dict[str, P]:
+    """Experts sharded over ``m``; with ``fsdp_axes``, the expert FF dim is
+    additionally sharded over the data axes (gathered per layer). Keys are
+    the per-layer names; the specs include the stacked ``L`` axis."""
+    fa = fsdp_axes
+    out = {"router": P(None, None, None), "e_gate": P(None, m, None, fa),
+           "e_up": P(None, m, None, fa), "e_down": P(None, m, fa, None)}
+    if cfg.moe.dense_residual_ff:
+        out.update({"r_gate": P(None, None, m), "r_up": P(None, None, m),
+                    "r_down": P(None, m, None)})
+    return out
+
+
 @torch.no_grad()
-def init_moe_param(generator: torch.Generator, key: str,
-                   p: torch.Tensor) -> None:
+def init_moe_param(generator: torch.Generator, key: str, p: torch.Tensor,
+                   full_shape=None, slices=None) -> None:
     """Fill the stacked MoE parameter ``key`` in place, one matrix — a
     (layer, expert) slice of the experts, a layer of the others — at a
     time, in index order from the one generator: a whole fp32 draw of
-    arctic's experts would not fit beside them on the card. Scales are the
+    arctic's experts would not fit beside them on the card. ``p`` may be
+    a rank's part ``slices`` of a tensor of ``full_shape``: every matrix is
+    drawn all the same, so the generator runs as on one device and the
+    part kept equals that slice of the single-device draw. Scales are the
     reference's: the router N(0, 0.02), every other matrix N(0,
     1/sqrt(fan_in)) with its own fan-in ``shape[-2]``."""
-    scale = 0.02 if key == "router" else 1.0 / math.sqrt(p.shape[-2])
-    for idx in itertools.product(*(range(n) for n in p.shape[:-2])):
-        p[idx].copy_(torch.randn(p.shape[-2:], generator=generator,
-                                 device=p.device,
-                                 dtype=torch.float32).mul_(scale))
+    full = tuple(p.shape if full_shape is None else full_shape)
+    slices = tuple(slices) if slices is not None else \
+        tuple(slice(0, n) for n in full)
+    lead, tail = slices[:-2], slices[-2:]
+    scale = 0.02 if key == "router" else 1.0 / math.sqrt(full[-2])
+    for idx in itertools.product(*(range(n) for n in full[:-2])):
+        m = torch.randn(full[-2:], generator=generator, device=p.device,
+                        dtype=torch.float32).mul_(scale)
+        if all(s.start <= i < s.stop for i, s in zip(idx, lead)):
+            p[tuple(i - s.start for i, s in zip(idx, lead))].copy_(m[tail])
 
 
 def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,38 +171,83 @@ def route(cfg: ArchConfig, run_cfg, router: torch.Tensor, x: torch.Tensor,
 
 
 def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
-               n_shards: int, shard_id: int) -> torch.Tensor:
+               n_shards: int, shard_id: int, gather=None) -> torch.Tensor:
     """Per-device MoE computation. x: (T, D) tokens; w experts: (E_local,
-    D, Fe). Returns this shard's partial output (T, D) in fp32."""
+    D, Fe). Returns this shard's partial output (T, D) in fp32. With
+    ``gather`` (FSDP experts), ``gather(e0, e1)`` returns the full
+    (gate, up, down) weights of local experts ``e0 .. e1 - 1``, taken
+    ``gather.chunk`` experts at a time; every rank walks every chunk, since
+    the gathers are collective."""
     dt = torch_dtype(cfg.dtype)
     T, D = x.shape
-    r = route(cfg, run_cfg, w["router"], x, n_local=w["e_gate"].shape[0],
+    n_local = w["e_gate"].shape[0]
+    r = route(cfg, run_cfg, w["router"], x, n_local=n_local,
               n_shards=n_shards, shard_id=shard_id)
     xin = x[r.sel_tok].to(dt)                              # (C, D)
     # the grouped GEMM over the contiguous expert groups of the sorted rows;
     # rows past the last group (not this shard's) stay 0 as in ragged_dot
     out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)
+    sizes = r.group_sizes.tolist()                         # host sync
+    chunk = n_local if gather is None else gather.chunk
     start = 0
-    for e, n in enumerate(r.group_sizes.tolist()):         # host sync
-        if n == 0:
-            continue
-        rows = xin[start:start + n]
-        g = torch.matmul(rows, w["e_gate"][e])
-        u = torch.matmul(rows, w["e_up"][e])
-        h = (F.silu(g.float()) * u.float()).to(dt)
-        out[start:start + n] = torch.matmul(h, w["e_down"][e])
-        start += n
+    for e0 in range(0, n_local, chunk):
+        e1 = min(e0 + chunk, n_local)
+        wg, wu, wd = (w["e_gate"], w["e_up"], w["e_down"]) \
+            if gather is None else gather(e0, e1)
+        off = 0 if gather is None else e0
+        for e in range(e0, e1):
+            n = sizes[e]
+            if n == 0:
+                continue
+            rows = xin[start:start + n]
+            g = torch.matmul(rows, wg[e - off])
+            u = torch.matmul(rows, wu[e - off])
+            h = (F.silu(g.float()) * u.float()).to(dt)
+            out[start:start + n] = torch.matmul(h, wd[e - off])
+            start += n
     out = out.float() * r.sel_p[:, None]
     return torch.zeros((T, D), dtype=torch.float32,
                        device=x.device).index_add_(0, r.sel_tok, out)
 
 
-def moe_ffn(cfg: ArchConfig, run_cfg, w, x: torch.Tensor) -> torch.Tensor:
+def _fsdp_gather(run_cfg, w, mesh):
+    """The just-in-time gather of FSDP experts over the data axes, or None
+    when they are not sharded there."""
+    fa = mesh.live_axes(run_cfg.data_axes) if run_cfg.fsdp_experts else ()
+    if not fa:
+        return None
+    full = tuple(w["e_gate"].shape[1:-1]) + (
+        w["e_gate"].shape[-1] * mesh.size(fa),)
+    one = 3 * math.prod(full) * w["e_gate"].element_size()
+
+    def gather(e0, e1):
+        return (S.all_gather(w["e_gate"][e0:e1], fa, 2, mesh),
+                S.all_gather(w["e_up"][e0:e1], fa, 2, mesh),
+                S.all_gather(w["e_down"][e0:e1], fa, 1, mesh))
+
+    gather.chunk = max(1, EXPERT_GATHER_BYTES // one)
+    return gather
+
+
+def moe_ffn(cfg: ArchConfig, run_cfg, w, x: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D): the experts' weighted sum plus, where the
-    config has one (arctic), the dense residual swiglu branch."""
-    B, S, D = x.shape
-    y = _local_moe(cfg, run_cfg, w, x.reshape(B * S, D), n_shards=1,
-                   shard_id=0).reshape(B, S, D).to(x.dtype)
+    config has one (arctic), the dense residual swiglu branch. On ``mesh``
+    ``x`` is this rank's batch rows, the same on every rank of the model
+    axis, and ``w`` holds this rank's experts (and residual columns)."""
+    B, S_, D = x.shape
+    if mesh is None:
+        y = _local_moe(cfg, run_cfg, w, x.reshape(B * S_, D), n_shards=1,
+                       shard_id=0).reshape(B, S_, D).to(x.dtype)
+        if cfg.moe.dense_residual_ff:
+            y = y + L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"])
+        return y
+    m = run_cfg.model_axis
+    y = _local_moe(cfg, run_cfg, w, x.reshape(B * S_, D),
+                   n_shards=mesh.size(m), shard_id=mesh.index(m),
+                   gather=_fsdp_gather(run_cfg, w, mesh))
+    y = S.psum(y, m, mesh).reshape(B, S_, D).to(x.dtype)
     if cfg.moe.dense_residual_ff:
-        y = y + L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"])
+        y = y + S.psum(L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"]), m,
+                       mesh)
     return y

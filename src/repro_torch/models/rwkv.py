@@ -44,6 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import wkv6_decode
 from repro_torch.models import layers as L
 from repro_torch.models.api import RunConfig
+from repro_torch.models.sharding import P
 
 LORA_R = 64
 LOGW_MIN, LOGW_MAX = -0.5, -1e-4
@@ -103,6 +104,48 @@ class RWKV6Model(nn.Module):
             "mu_ck": ((d,), f32), "mu_cr": ((d,), f32),
             "c_k": ((d, f), dt), "c_v": ((f, d), dt), "c_r": ((d, d), dt),
         }
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's ``param_pspecs``, keyed by ``state_dict`` name
+        (read by ZeRO-1 and elastic restore; the model computes on one
+        device, ROADMAP A13c)."""
+        m = self.run.model_axis
+        layers = {}
+        for k, (shape, _) in self._layer_shapes().items():
+            if len(shape) == 1:
+                layers[k] = P(None, None)
+            elif k in ("w_r", "w_k", "w_v", "w_g", "c_k", "c_r"):
+                layers[k] = P(None, None, m)     # column-parallel
+            elif k in ("w_o", "c_v"):
+                layers[k] = P(None, m, None)     # row-parallel
+            elif k == "decay_A":
+                layers[k] = P(None, None, None)
+            elif k == "decay_B":
+                layers[k] = P(None, None, m)
+            elif k == "bonus_u":
+                layers[k] = P(None, m, None)
+            else:
+                layers[k] = P(*((None,) * (len(shape) + 1)))
+        out = {"embed": P(m, None), "ln_in": P(None), "ln_inb": P(None),
+               "final_norm": P(None), "final_normb": P(None),
+               "lm_head": P(None, m)}
+        out.update({f"layers.{k}": v for k, v in layers.items()})
+        return out
+
+    def input_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        if shape.kind == "train":
+            return {"tokens": P(dax, None), "labels": P(dax, None)}
+        if shape.kind == "prefill":
+            return {"tokens": P(dax, None)}
+        return {"tokens": P(dax, None), "cache_len": P()}
+
+    def cache_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        m = self.run.model_axis
+        return {"wkv": P(None, dax, m, None, None),
+                "shift_att": P(None, dax, None),
+                "shift_ffn": P(None, dax, None)}
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "RWKV6Model":

@@ -35,6 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import ssd_decode
 from repro_torch.models import layers as L
 from repro_torch.models.api import RunConfig
+from repro_torch.models.sharding import P
 
 
 class Zamba2Model(nn.Module):
@@ -110,6 +111,51 @@ class Zamba2Model(nn.Module):
             "w_gate": ((d, f), dt), "w_up": ((d, f), dt),
             "w_down": ((f, d), dt),
         }
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's ``param_pspecs``, keyed by ``state_dict`` name
+        (read by ZeRO-1 and elastic restore; the model computes on one
+        device, ROADMAP A13c)."""
+        m = self.run.model_axis
+        mamba = {"ln": P(None, None, None),
+                 "in_proj": P(None, None, None, m),
+                 "conv_w": P(None, None, None, m),
+                 "conv_b": P(None, None, m),
+                 "A_log": P(None, None, m), "D": P(None, None, m),
+                 "dt_bias": P(None, None, m),
+                 "out_proj": P(None, None, m, None)}
+        shared = {"ln1": P(None), "wq": P(None, m), "wk": P(None, m),
+                  "wv": P(None, m), "wo": P(m, None), "ln2": P(None),
+                  "w_gate": P(None, m), "w_up": P(None, m),
+                  "w_down": P(m, None)}
+        out = {"embed": P(m, None), "final_norm": P(None),
+               "lm_head": P(None, m)}
+        out.update({f"mamba.{k}": v for k, v in mamba.items()})
+        out.update({f"shared.{k}": v for k, v in shared.items()})
+        return out
+
+    def input_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        if shape.kind == "train":
+            return {"tokens": P(dax, None), "labels": P(dax, None)}
+        if shape.kind == "prefill":
+            return {"tokens": P(dax, None)}
+        return {"tokens": P(dax, None), "cache_len": P()}
+
+    def cache_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes
+        m = self.run.model_axis
+        if shape.global_batch == 1:
+            # long-context single-stream decode: sequence-parallel KV cache
+            # (+ KV heads over the model axis); batch dim unshardable
+            kv = P(None, None, dax, m, None)
+            bax = None
+        else:
+            kv = P(None, dax, None, None, None)
+            bax = dax
+        return {"ssd": P(None, None, bax, m, None, None),
+                "conv": P(None, None, bax, None, m),
+                "k": kv, "v": kv}
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator,

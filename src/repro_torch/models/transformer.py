@@ -26,22 +26,67 @@ with PyTorch's idiom:
     attention forms: parameters are made with ``requires_grad=False`` for
     serving, a trainer turns them on with ``requires_grad_(True)``, and a
     kernel refuses an input that requires grad, so training runs with
-    ``RunConfig(attn_impl="plain")``. No expert-parallel or sharded decode
-    yet. Serving calls it under ``torch.inference_mode()``.
+    ``RunConfig(attn_impl="plain")``. Serving calls it under
+    ``torch.inference_mode()``.
+
+**On a mesh** (``models/sharding.py``: the model is built inside
+``use_mesh(mesh)``) every parameter is allocated at its
+local shard of ``param_pspecs()``, and when the mesh's model axis has more
+than one rank ``forward`` and ``decode_step`` run the tensor-parallel
+arithmetic that GSPMD derives from those specs in the reference
+(Megatron-style), with the collectives written out:
+
+  * ``embed`` is split over the vocabulary (``P(m, None)``): a masked
+    local lookup, then a ``psum``; ``lm_head`` (or the tied embedding) is
+    split over the vocabulary too, and the logits are all-gathered, so
+    every rank returns ``(B_local, S, V)``;
+  * ``wq`` is split by columns, giving the rank its ``Hq / n`` heads;
+    ``wk``/``wv`` are replicated (every ``DecoderLM`` config has fewer than
+    16 KV heads) and the rank keeps the KV heads its query heads read,
+    ``[a // g, (b - 1) // g + 1)`` for heads ``[a, b)``; K2 (prefill) or K1
+    (decode) runs at the local heads; ``wo`` is split by rows, then ``psum``;
+  * the dense MLP splits by columns (``w_gate``, ``w_up``, ``b_up``) and
+    rows (``w_down``), then ``psum``; MoE layers go to ``moe_ffn``'s
+    expert-parallel branch;
+  * the batch is this rank's rows of ``input_pspecs`` (the caller splits
+    it); activations are replicated over the model axis;
+  * the KV cache is this rank's part of ``cache_pspecs``: sequence-sharded
+    over the model axis (``init_cache`` makes it). Decode follows the
+    reference's branches: per-slot ``(B,)`` lengths scatter each row into
+    the rank that owns its position, then attend over the whole cache; a
+    scalar length with ``RunConfig.sharded_decode`` runs the distributed
+    flash-decode (``models/distributed_attention.py``); otherwise the
+    owner writes and the attention runs over the whole cache. "The whole
+    cache" is the slices all-gathered first, as GSPMD's baseline does: a
+    step moves every layer's cache, ``2 · L · B · Smax · Hkv · D`` elements,
+    through the collective, where the sharded decode moves ``O(B · Hq ·
+    D)`` per layer.
+
+Not on a mesh yet (ROADMAP A13c): the backward of these collectives
+(training runs with a model axis of 1), a KV-head-sharded cache (16 KV
+heads or more: no config has them), and a head count or vocabulary the
+model axis does not divide (``ValueError``; GSPMD would pad). With no mesh
+the code path is the single-device one.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
-from repro_torch.models.moe import init_moe_param, moe_ffn, moe_param_shapes
+from repro_torch.models.distributed_attention import (
+    decode_attention_seq_sharded, write_owned)
+from repro_torch.models.moe import (init_moe_param, moe_ffn,
+                                    moe_param_pspecs, moe_param_shapes)
+from repro_torch.models.sharding import P
 
 
 class DecoderLM(nn.Module):
@@ -49,26 +94,40 @@ class DecoderLM(nn.Module):
                  device: DeviceLike = None):
         """Parameters are allocated uninitialised on ``device`` (``None`` =
         the GPU; ``"meta"`` gives a storage-free skeleton); fill them with
-        ``init_params`` or ``load_state_dict``."""
+        ``init_params`` or ``load_state_dict``. Built inside
+        ``sharding.use_mesh(mesh)``, every parameter is this rank's shard."""
         super().__init__()
         self.cfg = cfg
         self.run = run_cfg or RunConfig()
+        self.mesh = S.get_mesh()
+        self.n_model = 1 if self.mesh is None \
+            else self.mesh.size(self.run.model_axis)
+        if self.n_model > 1:
+            if cfg.n_heads % self.n_model:
+                raise ValueError(
+                    f"{cfg.name}: {cfg.n_heads} query heads do not split "
+                    f"over {self.n_model} ranks of the model axis")
+            if cfg.n_kv_heads >= 16:
+                raise ValueError(f"{cfg.name}: a KV-head-sharded cache "
+                                 "(16 KV heads or more) is not ported")
         dev = torch.device(device) if str(device) == "meta" \
             else resolve_device(device)
-        self.embed = nn.Parameter(torch.empty(
-            cfg.vocab, cfg.d_model, dtype=torch_dtype(cfg.dtype), device=dev),
-            requires_grad=False)
-        self.final_norm = nn.Parameter(torch.empty(
-            cfg.d_model, dtype=torch.float32, device=dev),
-            requires_grad=False)
+        self._full = self.param_shapes()
+        specs = self.param_pspecs()
+
+        def param(name):
+            shape, dt = self._full[name]
+            if self.mesh is not None:
+                shape = S.local_shape(shape, specs[name], self.mesh, name)
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev),
+                                requires_grad=False)
+
+        self.embed = param("embed")
+        self.final_norm = param("final_norm")
         self.layers = nn.ParameterDict({
-            k: nn.Parameter(torch.empty((cfg.n_layers,) + shape, dtype=dt,
-                                        device=dev), requires_grad=False)
-            for k, (shape, dt) in self._layer_shapes().items()})
+            k: param(f"layers.{k}") for k in self._layer_shapes()})
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(
-                cfg.d_model, cfg.vocab, dtype=torch_dtype(cfg.dtype),
-                device=dev), requires_grad=False)
+            self.lm_head = param("lm_head")
 
     @property
     def device(self) -> torch.device:
@@ -102,6 +161,65 @@ class DecoderLM(nn.Module):
                            "w_down": ((f, d), dt), "b_down": ((d,), f32)})
         return shapes
 
+    def param_shapes(self) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of every parameter, by ``state_dict``
+        name (the reference's ``param_specs``)."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        out = {"embed": ((cfg.vocab, cfg.d_model), dt),
+               "final_norm": ((cfg.d_model,), torch.float32)}
+        out.update({f"layers.{k}": ((cfg.n_layers,) + shape, d)
+                    for k, (shape, d) in self._layer_shapes().items()})
+        if not cfg.tie_embeddings:
+            out["lm_head"] = ((cfg.d_model, cfg.vocab), dt)
+        return out
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's ``param_pspecs``, keyed by ``state_dict`` name."""
+        cfg, m = self.cfg, self.run.model_axis
+        layers = {"ln1": P(None, None), "ln2": P(None, None),
+                  "wq": P(None, None, m), "wo": P(None, m, None)}
+        # KV projections: shard heads on the model axis only when there are
+        # enough KV heads; MQA/GQA-with-few-heads replicates KV (cheap)
+        kv = P(None, None, m) if cfg.n_kv_heads >= 16 else P(None, None, None)
+        layers["wk"] = layers["wv"] = kv
+        if cfg.qk_norm:
+            layers["q_norm"] = layers["k_norm"] = P(None, None)
+        if cfg.moe is not None:
+            layers.update(moe_param_pspecs(
+                cfg, m, fsdp_axes=(self.run.data_axes
+                                   if self.run.fsdp_experts else None)))
+        elif cfg.mlp == "swiglu":
+            layers.update({"w_gate": P(None, None, m),
+                           "w_up": P(None, None, m),
+                           "w_down": P(None, m, None)})
+        else:
+            layers.update({"w_up": P(None, None, m), "b_up": P(None, m),
+                           "w_down": P(None, m, None),
+                           "b_down": P(None, None)})
+        out = {"embed": P(m, None), "final_norm": P(None)}
+        out.update({f"layers.{k}": v for k, v in layers.items()})
+        if not cfg.tie_embeddings:
+            out["lm_head"] = P(None, m)
+        return out
+
+    def input_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        if shape.kind == "train":
+            return {"tokens": P(dax, None), "labels": P(dax, None)}
+        if shape.kind == "prefill":
+            return {"tokens": P(dax, None)}
+        return {"tokens": P(dax, None), "cache_len": P()}
+
+    def cache_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        m = self.run.model_axis
+        if self.cfg.n_kv_heads >= 16:
+            kv = P(None, dax, None, m, None)     # shard KV heads
+        else:
+            kv = P(None, dax, m, None, None)     # shard cache sequence
+        return {"k": kv, "v": kv}
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator,
                     layer_fan_in: bool = False) -> "DecoderLM":
@@ -109,40 +227,60 @@ class DecoderLM(nn.Module):
         on the parameters' device). Scales are the reference's: norms 1,
         biases 0, embeddings N(0, 0.02), every other matrix
         N(0, 1/sqrt(fan_in)) with ``fan_in`` read off the stacked shape;
-        the MoE keys follow ``moe.init_moe_param`` (their own fan-in, drawn
-        a matrix at a time). The stacked fan-in (``L``) makes attention
-        rows near one-hot at full width (ROADMAP §C4); ``layer_fan_in=True``
-        draws the layer matrices at 1/sqrt(their per-layer fan-in) instead
-        (a deviation from the reference, for checks that need a
-        well-conditioned model), as ``Zamba2Model.init_params`` does."""
+        the MoE keys follow ``moe.init_moe_param`` (their own fan-in). The
+        stacked fan-in (``L``) makes attention rows near one-hot at full
+        width (ROADMAP §C4); ``layer_fan_in=True`` draws the layer matrices
+        at 1/sqrt(their per-layer fan-in) instead (a deviation from the
+        reference, for checks that need a well-conditioned model), as
+        ``Zamba2Model.init_params`` does. On a mesh every rank makes the
+        single-device draw and keeps its slice, so the shards equal the
+        slices of the single-device parameters exactly: a stacked dense
+        matrix is drawn whole, as on one device; the experts, one
+        (layer, expert) matrix at a time (``init_moe_param``), so that no
+        rank ever holds a whole expert tensor."""
         moe_keys = moe_param_shapes(self.cfg) if self.cfg.moe else {}
+        specs = self.param_pspecs()
+
+        def where(name):
+            full = self._full[name][0]
+            if self.mesh is None:
+                return full, None
+            return full, S.local_slices(full, specs[name], self.mesh, name)
+
+        def fill(p, name, scale=None):
+            full, sl = where(name)
+            t = L.dense_init(generator, full, p.dtype, scale=scale,
+                             device=p.device)
+            p.copy_(t if sl is None else t[sl])
+
         for k, p in self.layers.items():
             if k in moe_keys:
-                init_moe_param(generator, k, p)
+                init_moe_param(generator, k, p, *where(f"layers.{k}"))
             elif k.startswith("ln") or k.endswith("norm"):
                 p.fill_(1.0)
             elif k.startswith("b_"):
                 p.zero_()
             else:
-                scale = p.shape[-2] ** -0.5 if layer_fan_in else None
-                p.copy_(L.dense_init(generator, p.shape, p.dtype, scale=scale,
-                                     device=p.device))
-        self.embed.copy_(L.dense_init(generator, self.embed.shape,
-                                      self.embed.dtype, scale=0.02,
-                                      device=self.embed.device))
+                fill(p, f"layers.{k}", self._full[f"layers.{k}"][0][-2]
+                     ** -0.5 if layer_fan_in else None)
+        fill(self.embed, "embed", 0.02)
         self.final_norm.fill_(1.0)
         if not self.cfg.tie_embeddings:
-            self.lm_head.copy_(L.dense_init(
-                generator, self.lm_head.shape, self.lm_head.dtype,
-                device=self.lm_head.device))
+            fill(self.lm_head, "lm_head")
         return self
 
     def init_cache(self, shape: ShapeSpec,
                    batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Zeroed KV cache; on a mesh this rank's part of
+        ``cache_pspecs`` (``batch`` is then the global batch)."""
         cfg = self.cfg
         b = batch or shape.global_batch
         dims = (cfg.n_layers, b, shape.seq_len, cfg.n_kv_heads,
                 cfg.resolved_head_dim)
+        if self.mesh is not None:
+            spec = self.cache_pspecs(ShapeSpec(shape.name, shape.seq_len, b,
+                                               "decode"))["k"]
+            dims = S.local_shape(dims, spec, self.mesh, "cache")
         dt = torch_dtype(cfg.dtype)
         return {"k": torch.zeros(dims, dtype=dt, device=self.device),
                 "v": torch.zeros(dims, dtype=dt, device=self.device)}
@@ -202,7 +340,9 @@ class DecoderLM(nn.Module):
     def _mlp(self, w, x):
         h = self._norm(x, w["ln2"])
         if self.cfg.moe is not None:
-            return moe_ffn(self.cfg, self.run, w, h)
+            return moe_ffn(self.cfg, self.run, w, h, mesh=self.mesh)
+        if self.n_model > 1:
+            return self._mlp_tp(w, h)
         if self.cfg.mlp == "swiglu":
             return L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
         return L.gelu_mlp(h, w["w_up"], w["b_up"], w["w_down"], w["b_down"])
@@ -225,23 +365,119 @@ class DecoderLM(nn.Module):
                             cache_len)
             else:
                 write_at = cache_len.reshape(1)
+        attn = self._attn_tp if self.n_model > 1 else self._attn
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x = x + self._attn(w, x, rope, kv, write_at, attn_len)
+            x = x + attn(w, x, rope, kv, write_at, attn_len)
             x = x + self._mlp(w, x)
         return x
+
+    def _embed(self, tokens):
+        if self.n_model == 1:
+            return self.embed[tokens.long()]
+        # vocabulary-split table: a masked local lookup, then psum
+        m = self.run.model_axis
+        rows = self.embed.shape[0]
+        t = tokens.long() - self.mesh.index(m) * rows
+        hit = (t >= 0) & (t < rows)
+        x = self.embed[t.clamp(0, rows - 1)] * hit[..., None]
+        return S.psum(x, m, self.mesh)
 
     def _logits(self, x):
         x = self._norm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return torch.matmul(x, head)
+        if self.n_model == 1:
+            return torch.matmul(x, head)
+        # the local vocabulary columns, gathered
+        return S.all_gather(torch.matmul(x, head), self.run.model_axis, -1,
+                            self.mesh)
+
+    # ------------------------------------------------------------- on a mesh
+    def _local_heads(self):
+        """This rank's query heads ``[a, a + hl)`` and the KV heads they
+        read: a slice of the KV heads when the groups align with the split
+        (every config's case), else one KV head per query head (index)."""
+        cfg = self.cfg
+        hl = cfg.n_heads // self.n_model
+        a = self.mesh.index(self.run.model_axis) * hl
+        g = cfg.n_heads // cfg.n_kv_heads
+        if hl % g == 0 or g % hl == 0:
+            return a, hl, slice(a // g, (a + hl - 1) // g + 1)
+        return a, hl, torch.arange(a, a + hl, device=self.device) // g
+
+    @staticmethod
+    def _pick(t, kv):
+        """KV heads ``kv`` (a slice or an index) of (B, S, Hkv, D)."""
+        t = t[:, :, kv] if isinstance(kv, slice) else t.index_select(2, kv)
+        return t.contiguous()
+
+    def _attn_tp(self, w, x, rope, cache_kv=None, write_at=None,
+                 attn_len=None):
+        """``_attn`` at this rank's heads: column-split ``wq``, replicated
+        ``wk``/``wv``, row-split ``wo`` and its ``psum``. The cache is this
+        rank's slice of the sequence."""
+        cfg, run, mesh = self.cfg, self.run, self.mesh
+        m = run.model_axis
+        b, s, _ = x.shape
+        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        a, hl, kv = self._local_heads()
+        h = self._norm(x, w["ln1"])
+        q = torch.matmul(h, w["wq"]).reshape(b, s, hl, hd)
+        k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
+        v = torch.matmul(h, w["wv"]).reshape(b, s, hkv, hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, w["q_norm"])
+            k = L.rms_norm(k, w["k_norm"])
+        q = L.rotate(q, *rope)
+        k = L.rotate(k, *rope)
+        if cache_kv is None:
+            o = ops.flash_attention(q, self._pick(k, kv), self._pick(v, kv),
+                                    causal=True, q_chunk=run.q_chunk,
+                                    kv_chunk=run.kv_chunk,
+                                    impl=run.attn_impl)
+        else:
+            ck, cv = cache_kv
+            pos = write_at[1] if isinstance(write_at, tuple) else write_at
+            if not isinstance(write_at, tuple) and self._use_sharded_decode():
+                o = decode_attention_seq_sharded(
+                    q, ck, cv, k, v, pos, model_axis=m,
+                    impl=run.attn_impl, mesh=mesh)[:, :, a:a + hl]
+            else:
+                # the owner writes; attention over the gathered cache
+                start = mesh.index(m) * ck.shape[1]
+                write_owned(ck, k, pos, start)
+                write_owned(cv, v, pos, start)
+                o = ops.decode_attention(
+                    q, self._pick(S.all_gather(ck, m, 1, mesh), kv),
+                    self._pick(S.all_gather(cv, m, 1, mesh), kv), attn_len,
+                    impl=run.attn_impl)
+        o = torch.matmul(o.reshape(b, s, hl * hd), w["wo"])
+        return S.psum(o, m, mesh)
+
+    def _use_sharded_decode(self) -> bool:
+        """The explicit distributed flash-decode when the cache is
+        sequence-sharded (few KV heads) over a model axis of several ranks."""
+        return (self.run.sharded_decode and self.cfg.n_kv_heads < 16
+                and self.n_model > 1)
+
+    def _mlp_tp(self, w, h):
+        """The dense MLP split by columns and rows, then ``psum`` (the
+        replicated ``b_down`` is added once, after it)."""
+        m = self.run.model_axis
+        if self.cfg.mlp == "swiglu":
+            return S.psum(L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"]),
+                          m, self.mesh)
+        u = torch.matmul(h, w["w_up"]) + w["b_up"]
+        out = torch.matmul(F.gelu(u, approximate="tanh").to(h.dtype),
+                           w["w_down"])
+        return (S.psum(out, m, self.mesh) + w["b_down"]).to(h.dtype)
 
     # ------------------------------------------------------------------ steps
     def forward(self, batch) -> torch.Tensor:
         """Prefill forward: batch = {tokens (B,S)} -> logits (B, S, V)."""
         tokens = batch["tokens"].to(self.device)
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         x = self._stack(x, self._positions(tokens))
         return self._logits(x)
 
@@ -256,7 +492,7 @@ class DecoderLM(nn.Module):
         tokens = batch["tokens"].to(self.device)
         cache_len = torch.as_tensor(batch["cache_len"], device=self.device)
         cache_len = cache_len.long()
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         pos = self._positions(tokens, offset=cache_len)
         x = self._stack(x, pos, cache=cache, cache_len=cache_len)
         return self._logits(x)[:, -1], cache

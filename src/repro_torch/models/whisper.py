@@ -46,6 +46,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.api import RunConfig
+from repro_torch.models.sharding import P
 
 MAX_DEC_POS = 32768 * 16 + 8   # the reference's, sized for its decode_32k cell
 
@@ -108,6 +109,47 @@ class WhisperModel(nn.Module):
         return {"mln": ((d,), f32), "mlnb": ((d,), f32),
                 "w_up": ((d, f), dt), "b_up": ((f,), f32),
                 "w_down": ((f, d), dt), "b_down": ((d,), f32)}
+
+    def param_pspecs(self) -> Dict[str, P]:
+        """The reference's ``param_pspecs``, keyed by ``state_dict`` name
+        (read by ZeRO-1 and elastic restore; the model computes on one
+        device, ROADMAP A13c)."""
+        m = self.run.model_axis
+
+        def spec(k, shape):
+            if len(shape) == 1:          # stacked 1-d parameters: ndim 2
+                return P(None, m) if k == "b_up" else P(None, None)
+            if k.endswith(("wq", "wk", "wv")) or k == "w_up":
+                return P(None, None, m)
+            if k.endswith("wo") or k == "w_down":
+                return P(None, m, None)
+            return P(None, None, None)
+
+        enc = {**self._attn_shapes("s_"), **self._mlp_shapes()}
+        dec = {**self._attn_shapes("s_"), **self._attn_shapes("x_"),
+               **self._mlp_shapes()}
+        # vocab 51865 is not divisible by the model axis: replicate the
+        # (tiny) embedding; logits stay replicated over `model`
+        out = {"embed": P(None, None), "dec_pos": P(None, None),
+               "enc_final_ln": P(None), "enc_final_lnb": P(None),
+               "dec_final_ln": P(None), "dec_final_lnb": P(None)}
+        out.update({f"encoder.{k}": spec(k, s) for k, (s, _) in enc.items()})
+        out.update({f"decoder.{k}": spec(k, s) for k, (s, _) in dec.items()})
+        return out
+
+    def input_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        if shape.kind == "train":
+            return {"frames": P(dax, None, None), "tokens": P(dax, None),
+                    "labels": P(dax, None)}
+        if shape.kind == "prefill":
+            return {"frames": P(dax, None, None), "tokens": P(dax, None)}
+        return {"tokens": P(dax, None), "cache_len": P()}
+
+    def cache_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
+        dax = self.run.data_axes if shape.global_batch > 1 else None
+        kv = P(None, dax, None, None, None)
+        return {"k": kv, "v": kv, "xk": kv, "xv": kv}
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator,

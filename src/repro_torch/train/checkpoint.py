@@ -19,10 +19,17 @@ restore cannot read them: numpy has no cast from ``V2`` to ml_dtypes'
 bfloat16, ROADMAP §C8.) The manifest goes through the port's own
 MessagePack codec, byte-equal to ``msgpack.packb``.
 
-``restore_checkpoint(..., device=...)`` is the single-device counterpart
-of the reference's ``shardings``: every leaf lands on ``device``, or, when
-it is None, on the device of its counterpart in ``like``. Restoring onto
-another mesh (elastic resharding) waits for the sharded path (ROADMAP A13).
+``restore_checkpoint(..., device=...)`` puts every leaf on ``device``, or,
+when it is None, on the device of its counterpart in ``like``.
+
+On a mesh both take ``shardings``, a tree like the state's whose leaves are
+``NamedSharding(mesh, P)`` (the reference's ``shardings=``). ``save``
+gathers every leaf to its global shape (the reference's ``np.asarray``, a
+collective: every rank calls it) and rank 0 writes, in the same layout, so
+a checkpoint of a mesh restores on one device and in the reference.
+``restore`` gives each rank only its slice of each leaf, read from the
+``.npy`` files through a memory map, onto whatever mesh ``shardings``
+names: the elastic restart onto another mesh shape.
 """
 from __future__ import annotations
 
@@ -33,11 +40,37 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.compat import DeviceLike
+from repro_torch.models import sharding as S
 from repro_torch.train import msgpack_codec
 
 _CHUNK_BYTES = 256 * 1024 * 1024
 _BF16_HEADER = {"descr": "<V2", "fortran_order": False}
+
+
+class NamedSharding:
+    """How one leaf lies on a mesh: ``(mesh, spec)``."""
+
+    def __init__(self, mesh: S.Mesh, spec: S.P):
+        self.mesh, self.spec = mesh, spec
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh}, {self.spec})"
+
+
+def named_shardings(specs: Any, mesh: S.Mesh) -> Any:
+    """A tree of ``P`` (dicts, lists, tuples, NamedTuples) as a tree of
+    ``NamedSharding`` on ``mesh``."""
+    if isinstance(specs, S.P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: named_shardings(v, mesh) for k, v in specs.items()}
+    vals = [named_shardings(v, mesh) for v in specs]
+    if hasattr(specs, "_fields"):
+        return type(specs)(*vals)
+    return vals if isinstance(specs, list) else tuple(vals)
 
 
 def _nested(tree: dict) -> dict:
@@ -90,15 +123,27 @@ def _save_npy(path: str, arr: np.ndarray, bf16: bool) -> None:
 
 
 def save_checkpoint(path: str, step: int, tree: Any,
-                    async_save: bool = False) -> Optional[threading.Thread]:
+                    async_save: bool = False,
+                    shardings: Any = None) -> Optional[threading.Thread]:
     """Save a tree of tensors. The copy to the host happens here; with
-    ``async_save`` the files are written by a thread, which is returned."""
+    ``async_save`` the files are written by a thread, which is returned.
+    With ``shardings`` every rank must call it: the leaves are gathered,
+    rank 0 writes, and a synchronous save ends on a barrier, so that every
+    rank may read the checkpoint when it returns."""
+    sharded = dict(_leaf_paths(shardings)) if shardings is not None else {}
+    writer = not sharded or dist.get_rank() == 0
     ckpt_dir = os.path.join(path, f"step_{step:08d}")
     tmp_dir = ckpt_dir + ".tmp"
-    os.makedirs(tmp_dir, exist_ok=True)
+    if writer:
+        os.makedirs(tmp_dir, exist_ok=True)
     host = []
     manifest = {"step": step, "leaves": []}
     for lpath, leaf in _leaf_paths(tree):
+        if lpath in sharded:
+            sh = sharded[lpath]
+            leaf = S.gather(leaf, sh.spec, sh.mesh)
+        if not writer:
+            continue
         arr, dtype = _to_host(leaf)
         n_chunks = 1
         if arr.ndim > 0:
@@ -121,11 +166,17 @@ def save_checkpoint(path: str, step: int, tree: Any,
             fh.write(msgpack_codec.packb(manifest))
         os.replace(tmp_dir, ckpt_dir)   # publish
 
+    if not writer:
+        if not async_save:
+            dist.barrier()
+        return None
     if async_save:
         t = threading.Thread(target=write, daemon=True)
         t.start()
         return t
     write()
+    if sharded:
+        dist.barrier()
     return None
 
 
@@ -137,15 +188,29 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load_leaf(ckpt_dir: str, rec: dict) -> torch.Tensor:
+def _load_leaf(ckpt_dir: str, rec: dict, index=None) -> torch.Tensor:
+    """A leaf, or its part ``index`` (a tuple of slices): the files are
+    memory-mapped, so only that part is read."""
     safe = rec["path"].strip("/").replace("/", ".")
+    shape = tuple(rec["shape"])
+    mmap = "r" if np.prod(shape) > 0 else None   # numpy maps no empty file
+    if index is None:
+        index = tuple(slice(0, n) for n in shape)
     if rec["chunks"] == 1:
-        arr = np.load(os.path.join(ckpt_dir, f"{safe}.npy"))
+        arr = np.load(os.path.join(ckpt_dir, f"{safe}.npy"), mmap_mode=mmap)
+        arr = arr.reshape(shape)[index]
     else:
-        arr = np.concatenate(
-            [np.load(os.path.join(ckpt_dir, f"{safe}.{ci:04d}.npy"))
-             for ci in range(rec["chunks"])], axis=0)
-    arr = arr.reshape(rec["shape"])
+        # chunks split dim 0; keep each one's rows of the part
+        parts, row = [], 0
+        first, rest = index[0], index[1:]
+        for ci in range(rec["chunks"]):
+            c = np.load(os.path.join(ckpt_dir, f"{safe}.{ci:04d}.npy"),
+                        mmap_mode=mmap)
+            lo, hi = max(first.start, row), min(first.stop, row + len(c))
+            if lo < hi:
+                parts.append(c[(slice(lo - row, hi - row),) + rest])
+            row += len(c)
+        arr = np.concatenate(parts, axis=0)
     if rec["dtype"] != "bfloat16":
         return torch.from_numpy(np.array(arr, dtype=rec["dtype"], order="C"))
     if arr.dtype.kind != "V" or arr.dtype.itemsize != 2:
@@ -156,10 +221,13 @@ def _load_leaf(ckpt_dir: str, rec: dict) -> torch.Tensor:
 
 
 def restore_checkpoint(path: str, step: Optional[int], like: Any,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, shardings: Any = None):
     """Restore into the structure of ``like`` (a tree of tensors, or of
     anything in the leaves' places); returns ``(tree, step)``. Only the
-    leaves ``like`` names are read."""
+    leaves ``like`` names are read. ``shardings`` (a tree of
+    ``NamedSharding`` beside ``like``'s leaves) gives each leaf it names as
+    this rank's slice, from any mesh."""
+    sharded = dict(_leaf_paths(shardings)) if shardings is not None else {}
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -182,6 +250,10 @@ def restore_checkpoint(path: str, step: Optional[int], like: Any,
             raise KeyError(f"{prefix}: not in the checkpoint of step {step}")
         dev = device if device is not None else (
             t.device if torch.is_tensor(t) else "cpu")
-        return _load_leaf(ckpt_dir, records[prefix]).to(dev)
+        rec, index = records[prefix], None
+        if prefix in sharded:
+            sh = sharded[prefix]
+            index = S.local_slices(rec["shape"], sh.spec, sh.mesh, prefix)
+        return _load_leaf(ckpt_dir, rec, index).to(dev)
 
     return rebuild(like), manifest["step"]

@@ -10,15 +10,27 @@ optimizer state only. Gradients come from ``torch.autograd.grad`` through
 the model's plain forms: the model must run with
 ``RunConfig(attn_impl="plain")``, since a kernel refuses an input that
 requires grad.
+
+On a mesh (``make_train_step(..., mesh=)``, default the active one) the
+step is data-parallel: it takes the global batch, keeps this rank's rows
+of ``model.input_pspecs`` (the data axes), computes the local loss and
+gradients (microbatches averaged first under ``grad_accum``), and averages
+both over the data axes (``psum / n_data``) before the codec and the
+update; with ``RunConfig.use_zero1`` the update is ZeRO-1
+(``optimizer.adamw_update``). The model axis must have one rank: the
+backward of the tensor- and expert-parallel collectives is not ported
+(ROADMAP A13c).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.models import sharding as S
 from repro_torch.train.compress import roundtrip_tree
-from repro_torch.train.optimizer import AdamWState, adamw_update
+from repro_torch.train.optimizer import AdamWState, adamw_pspecs, adamw_update
 
 
 def trainable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -62,23 +74,67 @@ def loss_and_grads(model, batch, accum: int = 1):
             {n: s / accum for n, s in zip(names, sums)})
 
 
-def make_train_step(model, lr: float = 3e-4,
-                    weight_decay: float = 0.1) -> Callable:
+def optimizer_pspecs(model) -> AdamWState:
+    """The optimizer state's partition specs for ``model``: its parameters'
+    own, sharded over the data axes too under ``RunConfig.use_zero1``."""
+    run = model.run
+    return adamw_pspecs(model.param_pspecs(), dict(model.named_parameters()),
+                        use_zero1=run.use_zero1, dax=run.data_axes)
+
+
+def local_batch(model, batch, mesh) -> dict:
+    """This rank's rows of a global training batch (``input_pspecs``)."""
+    b, s = batch["tokens"].shape
+    specs = model.input_pspecs(ShapeSpec("train", s, b, "train"))
+    return {k: S.local_shard(v, specs[k], mesh, k) for k, v in batch.items()}
+
+
+def make_train_step(model, lr: float = 3e-4, weight_decay: float = 0.1,
+                    mesh: Optional[S.Mesh] = None) -> Callable:
     """Returns ``train_step(opt_state, batch, generator) -> (opt_state,
     metrics)``. Honors ``RunConfig.grad_accum`` (``loss_and_grads``) and
     ``RunConfig.grad_compress`` (the gradients through the int8 codec, its
     noise from ``generator``). ``metrics`` holds 0-d tensors: ``loss``,
-    ``grad_norm``, ``step``."""
+    ``grad_norm``, ``step``. On ``mesh`` the step is data-parallel (and
+    ZeRO-1 under ``use_zero1``): ``opt_state`` must be laid out by
+    ``optimizer_pspecs`` (``adamw_init(..., mu_pspecs=...)``)."""
     run = model.run
     params = trainable(model)
+    mesh = mesh if mesh is not None else S.get_mesh()
+    if mesh is None:
+        def train_step(opt_state: AdamWState, batch, generator):
+            loss, grads = loss_and_grads(model, batch, run.grad_accum)
+            if run.grad_compress:
+                grads = roundtrip_tree(grads, generator)
+            _, opt_state, gnorm = adamw_update(
+                grads, opt_state, params, lr=lr, weight_decay=weight_decay)
+            return opt_state, {"loss": loss, "grad_norm": gnorm,
+                               "step": opt_state.step}
+
+        return train_step
+
+    if mesh.size(run.model_axis) > 1:
+        raise NotImplementedError(
+            "training on a model axis of more than one rank: the backward "
+            "of the tensor- and expert-parallel collectives is ROADMAP A13c")
+    dax = run.data_axes
+    n_data = mesh.size(dax)
+    pspecs = model.param_pspecs()
+    mu_pspecs = optimizer_pspecs(model).mu
+
+    def mean(t):
+        return S.psum(t, dax, mesh) / n_data if n_data > 1 else t
 
     def train_step(opt_state: AdamWState, batch, generator):
-        loss, grads = loss_and_grads(model, batch, run.grad_accum)
+        loss, grads = loss_and_grads(model, local_batch(model, batch, mesh),
+                                     run.grad_accum)
+        grads = {k: mean(g) for k, g in grads.items()}
         if run.grad_compress:
             grads = roundtrip_tree(grads, generator)
         _, opt_state, gnorm = adamw_update(
-            grads, opt_state, params, lr=lr, weight_decay=weight_decay)
-        return opt_state, {"loss": loss, "grad_norm": gnorm,
+            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+            param_pspecs=pspecs, mu_pspecs=mu_pspecs, mesh=mesh)
+        return opt_state, {"loss": mean(loss), "grad_norm": gnorm,
                            "step": opt_state.step}
 
     return train_step

@@ -88,9 +88,7 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
     assert first["losses"][-1] < first["losses"][0]
 
 
-def test_train_launcher_refuses_zero1_and_defaults_to_the_gpu():
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.main(["--reduced", "--zero1", "--device", "cpu"])
+def test_train_launcher_defaults_to_the_gpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--reduced", "--steps", "1"])

@@ -122,3 +122,425 @@ def torch_threads(n):
         yield
     finally:
         torch.set_num_threads(old)
+
+
+# -- meshes: ranks on a gloo group of CPU processes, the reference on fake
+#    devices in a subprocess ------------------------------------------------
+
+SRC = __import__("os").path.join(__import__("os").path.dirname(
+    __import__("os").path.dirname(__import__("os").path.abspath(__file__))),
+    "src")
+
+
+def spawn_gloo(job, world, tmp_path, *args, timeout=300):
+    """``job(rank, world, *args)`` on ``world`` CPU processes joined in one
+    gloo group (``repro_torch.launch.mesh.run_ranks``)."""
+    import uuid
+    from repro_torch.launch.mesh import run_ranks
+    run_ranks(job, world, args, timeout=timeout,
+              rendezvous=str(tmp_path / f"rendezvous-{uuid.uuid4().hex}"))
+
+
+def start_jax_mesh(fn_name, n_devices, *args):
+    """Start ``torch_port_util.<fn_name>(*args)`` in a subprocess whose JAX
+    sees ``n_devices`` fake CPU devices (as tests/test_moe.py's mesh tests
+    do); returns the ``Popen``. Arguments are strings."""
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, tests]),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count="
+                         f"{n_devices}")
+    code = (f"import torch_port_util as u; u.{fn_name}"
+            f"(*{list(args)!r})")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, timeout=300):
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-3000:]
+    return out
+
+
+def local_rows(a, mesh, spec):
+    """The rank's part of a numpy/torch array laid out by ``spec``."""
+    from repro_torch.models import sharding as S
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+    return S.local_shard(t, spec, mesh).contiguous()
+
+
+# the mesh parity cases (tests/test_torch_mesh.py) ---------------------------
+
+MESH_DENSE = dict(n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_ff=128,
+                  vocab=256)
+MESH_B, MESH_S = 4, 16               # batch, prefill length
+MESH_SMAX, MESH_START, MESH_STEPS = 16, 6, 4   # decode crosses position 8
+MESH_T = 32                           # MoE tokens
+
+
+def mesh_inputs(path):
+    """Weights and inputs of the mesh parity cases, drawn with numpy, saved
+    as one .npz that both sides read. Dense weights at their per-layer
+    fan-in (well-conditioned attention), MoE as tests/test_torch_moe.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import RunConfig, build_model
+    rng = np.random.default_rng(17)
+    cfg = get_config("qwen3-32b").reduced(**MESH_DENSE)
+    out = {}
+    for k, (shape, _) in build_model(cfg, RunConfig(), device="meta") \
+            .param_shapes().items():
+        if k.endswith(("ln1", "ln2", "norm")):
+            out["w." + k] = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            fan = shape[-2] if len(shape) == 3 else (
+                1 / 0.02 ** 2 if k == "embed" else shape[0])
+            out["w." + k] = rng.standard_normal(shape) / np.sqrt(fan)
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    out["tokens"] = rng.integers(0, cfg.vocab, (MESH_B, MESH_S))
+    cache = np.zeros((2, cfg.n_layers, MESH_B, MESH_SMAX, hkv, hd))
+    cache[:, :, :, :MESH_START] = rng.standard_normal(
+        (2, cfg.n_layers, MESH_B, MESH_START, hkv, hd))
+    out["cache"] = cache
+    out["dec_tokens"] = rng.integers(0, cfg.vocab, (MESH_B, MESH_STEPS))
+    acfg = get_config("arctic-480b").reduced()
+    e, d = acfg.moe, acfg.d_model
+    for k, (shape, sc) in {
+            "router": ((d, e.n_experts), 0.5),
+            "e_gate": ((e.n_experts, d, e.d_ff_expert), 0.1),
+            "e_up": ((e.n_experts, d, e.d_ff_expert), 0.1),
+            "e_down": ((e.n_experts, e.d_ff_expert, d), 0.1),
+            "r_gate": ((d, e.dense_residual_ff), 0.1),
+            "r_up": ((d, e.dense_residual_ff), 0.1),
+            "r_down": ((e.dense_residual_ff, d), 0.1)}.items():
+        out["moe." + k] = rng.standard_normal(shape) * sc
+    out["moe_x"] = rng.standard_normal((2, MESH_T // 2, d))
+    np.savez(path, **{k: np.asarray(v, np.float32 if v.dtype.kind == "f"
+                                     else np.int32) for k, v in out.items()})
+
+
+def _jax_tree(z, prefix):
+    import jax.numpy as jnp
+    tree = {}
+    for k in z.files:
+        if not k.startswith(prefix):
+            continue
+        node = tree
+        *parents, leaf = k[len(prefix):].split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(z[k])
+    return tree
+
+
+def jax_mesh_main(inputs, out):
+    """The reference's side of the mesh cases, on 4 fake devices."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.configs.base import ShapeSpec
+    from repro.launch.steps import _shard
+    from repro.models.api import RunConfig, build_model
+    from repro.models.moe import moe_ffn
+    from repro.models.sharding import compat_make_mesh, use_mesh
+    z = np.load(inputs)
+    cfg = get_config("qwen3-32b").reduced(**MESH_DENSE)
+    params = _jax_tree(z, "w.")
+    res = {}
+    # tensor-parallel forward on (1, 4)
+    mesh = compat_make_mesh((1, 4), ("data", "model"))
+    with use_mesh(mesh):
+        m = build_model(cfg, RunConfig(q_chunk=8, kv_chunk=8,
+                                       data_axes=("data",)))
+        shape = ShapeSpec("p", MESH_S, MESH_B, "prefill")
+        f = jax.jit(m.forward, in_shardings=(
+            _shard(mesh, m.param_pspecs()), _shard(mesh, m.input_pspecs(
+                shape))))
+        res["tp_logits"] = f(params, {"tokens": jnp.asarray(z["tokens"])})
+    # sequence-sharded decode on (2, 2)
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    with use_mesh(mesh):
+        m = build_model(cfg, RunConfig(q_chunk=8, kv_chunk=8,
+                                       data_axes=("data",),
+                                       sharded_decode=True))
+        shape = ShapeSpec("d", MESH_SMAX, MESH_B, "decode")
+        step = jax.jit(m.decode_step, in_shardings=(
+            _shard(mesh, m.param_pspecs()), _shard(mesh, m.cache_pspecs(
+                shape)), _shard(mesh, m.input_pspecs(shape))))
+        cache = {"k": jnp.asarray(z["cache"][0]),
+                 "v": jnp.asarray(z["cache"][1])}
+        for t in range(MESH_STEPS):
+            batch = {"tokens": jnp.asarray(z["dec_tokens"][:, t:t + 1]),
+                     "cache_len": jnp.asarray(MESH_START + t, jnp.int32)}
+            logits, cache = step(params, cache, batch)
+            res[f"dec_logits_{t}"] = logits
+        res["dec_k"], res["dec_v"] = cache["k"], cache["v"]
+    # expert-parallel MoE on (1, 4) with drops, and FSDP experts on (2, 2)
+    acfg = get_config("arctic-480b").reduced()
+    w = _jax_tree(z, "moe.")
+    x = jnp.asarray(z["moe_x"])
+    for name, shape, run in (
+            ("ep", (1, 4), RunConfig(data_axes=("data",),
+                                     moe_capacity_factor=1.25)),
+            ("fsdp", (2, 2), RunConfig(data_axes=("data",),
+                                       fsdp_experts=True,
+                                       moe_capacity_factor=8.0))):
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        with use_mesh(mesh):
+            res["moe_" + name] = jax.jit(
+                lambda w, x, run=run: moe_ffn(acfg, run, w, x))(w, x)
+    np.savez(out, **{k: np.asarray(v, np.float32) for k, v in res.items()})
+    print("jax mesh ok")
+
+
+def port_mesh_job(rank, world, inputs, out):
+    """The port's side of the mesh cases, one rank of 4 gloo CPU ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import moe as TM
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+    from repro_torch.models.sharding import P
+    z = np.load(inputs)
+    cfg = get_config("qwen3-32b").reduced(**MESH_DENSE)
+    full = {k[2:]: torch.from_numpy(z[k]) for k in z.files
+            if k.startswith("w.")}
+    res = {}
+
+    def model(mesh, **run):
+        with S.use_mesh(mesh):
+            m = build_model(cfg, RunConfig(q_chunk=8, kv_chunk=8,
+                                           data_axes=("data",), **run),
+                            device="cpu")
+        m.load_state_dict(S.shard_state_dict(full, m.param_pspecs(), mesh))
+        return m
+
+    with torch.no_grad():
+        # tensor-parallel forward on (1, 4)
+        mesh = S.make_mesh((1, 4), ("data", "model"), "cpu")
+        m = model(mesh)
+        res["tp_logits"] = m.forward({"tokens": torch.from_numpy(
+            z["tokens"])})
+        # the init on the mesh keeps the single-device draw's slices
+        one = build_model(cfg, RunConfig(), device="cpu").init_params(
+            torch.Generator().manual_seed(3))
+        with S.use_mesh(mesh):
+            sh = build_model(cfg, RunConfig(), device="cpu").init_params(
+                torch.Generator().manual_seed(3))
+        specs = sh.param_pspecs()
+        res["init_equal"] = torch.tensor(float(all(
+            torch.equal(v, S.local_shard(one.state_dict()[k], specs[k], mesh))
+            for k, v in sh.state_dict().items())))
+        # decode on (2, 2): sharded, gathered, per-slot lengths
+        mesh = S.make_mesh((2, 2), ("data", "model"), "cpu")
+        shape = ShapeSpec("d", MESH_SMAX, MESH_B, "decode")
+        bspec = P(("data",), None)
+        toks = local_rows(z["dec_tokens"], mesh, bspec)
+        for name, sharded in (("dec", True), ("gath", False)):
+            m = model(mesh, sharded_decode=sharded)
+            spec = m.cache_pspecs(shape)["k"]
+            cache = {kv: local_rows(z["cache"][i], mesh, spec)
+                     for i, kv in enumerate("kv")}
+            for t in range(MESH_STEPS):
+                logits, cache = m.decode_step(cache, {
+                    "tokens": toks[:, t:t + 1],
+                    "cache_len": torch.tensor(MESH_START + t)})
+                res[f"{name}_logits_{t}"] = logits
+            res[f"{name}_k"], res[f"{name}_v"] = cache["k"], cache["v"]
+        lens = torch.tensor([7, 9, 8, 11])
+        res["slot_logits"], cache = m.decode_step(cache, {
+            "tokens": toks[:, :1],
+            "cache_len": local_rows(lens, mesh, P(("data",)))})
+        res["slot_k"] = cache["k"]
+        # 12 query heads on 3 KV heads (a group of 4) over 2 model ranks:
+        # 6 heads a rank, which split a group, so each reads its KV head by
+        # index; against the port on one device
+        ucfg = get_config("qwen3-32b").reduced(
+            n_layers=2, d_model=96, n_heads=12, n_kv_heads=3, d_ff=128,
+            vocab=256)
+        one = build_model(ucfg, RunConfig(q_chunk=8, kv_chunk=8),
+                          device="cpu").init_params(
+            torch.Generator().manual_seed(4), layer_fan_in=True)
+        with S.use_mesh(mesh):
+            um = build_model(ucfg, RunConfig(q_chunk=8, kv_chunk=8,
+                                             data_axes=("data",),
+                                             sharded_decode=True),
+                             device="cpu").init_params(
+                torch.Generator().manual_seed(4), layer_fan_in=True)
+        utoks = torch.from_numpy(z["tokens"])
+        res["uneven_heads_err"] = (um.forward({"tokens": local_rows(
+            utoks, mesh, bspec)}) - local_rows(one.forward(
+                {"tokens": utoks}), mesh, P(("data",), None, None))
+        ).abs().max()
+        ucache = {kv: torch.zeros(2, MESH_B, MESH_SMAX, 3, 8)
+                  for kv in "kv"}
+        lcache = um.init_cache(shape)
+        for t in range(MESH_STEPS):
+            want, _ = one.decode_step(ucache, {
+                "tokens": utoks[:, t:t + 1], "cache_len": torch.tensor(t)})
+            got, _ = um.decode_step(lcache, {
+                "tokens": local_rows(utoks, mesh, bspec)[:, t:t + 1],
+                "cache_len": torch.tensor(t)})
+            res["uneven_heads_err"] = torch.maximum(
+                res["uneven_heads_err"],
+                (got - local_rows(want, mesh, bspec)).abs().max())
+        # expert-parallel MoE (drops) on (1, 4); FSDP experts on (2, 2)
+        acfg = get_config("arctic-480b").reduced()
+        w = {k[4:]: torch.from_numpy(z[k]) for k in z.files
+             if k.startswith("moe.")}
+        x = torch.from_numpy(z["moe_x"])
+        TM.EXPERT_GATHER_BYTES = 1       # one expert per gather
+        for name, shape_, run in (
+                ("ep", (1, 4), RunConfig(data_axes=("data",),
+                                         moe_capacity_factor=1.25)),
+                ("fsdp", (2, 2), RunConfig(data_axes=("data",),
+                                           fsdp_experts=True,
+                                           moe_capacity_factor=8.0))):
+            mesh = S.make_mesh(shape_, ("data", "model"), "cpu")
+            specs = TM.moe_param_pspecs(acfg, "model", ("data",)
+                                        if run.fsdp_experts else None)
+            wl = {k: local_rows(v, mesh, P(*specs[k][1:]))
+                  for k, v in w.items()}
+            bspec = P(("data",), None, None)
+            res["moe_" + name] = TM.moe_ffn(acfg, run, wl,
+                                            local_rows(x, mesh, bspec), mesh)
+    np.savez(f"{out}.{rank}.npz",
+             **{k: v.float().numpy() for k, v in res.items()})
+
+
+def port_sharding_job(rank, world, out):
+    """Shards and collectives on 4 gloo CPU ranks (tests/
+    test_torch_sharding.py): results to ``out.<rank>.json``."""
+    import json
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import sharding as S
+    from repro_torch.models.sharding import P
+    res = {}
+    full = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    for shape, names in (((2, 2), ("data", "model")),
+                         ((2, 1, 2), ("pod", "data", "model"))):
+        mesh = S.make_mesh(shape, names, "cpu")
+        key = "x".join(map(str, shape))
+        with S.use_mesh(mesh):
+            res[key + ".sizes"] = S.mesh_axis_sizes()
+            res[key + ".filter"] = [list(map(repr, S.filter_spec(s))) for s in (
+                P(("pod", "data"), None, "model"), P("model", None),
+                P(None, ("data", "model")))]
+            res[key + ".coord"] = mesh.coord
+            for spec in (P(("pod", "data"), None, "model"), P(None, "model"),
+                         P(None, None, ("data", "model")), P()):
+                loc = S.local_shard(full, spec)
+                back = S.gather(loc, spec)
+                res[f"{key}.{spec!r}"] = [list(loc.shape), loc.sum().item(),
+                                          bool(torch.equal(back, full))]
+            x = torch.full((3,), float(rank + 1))
+            res[key + ".psum_model"] = S.psum(x, "model").tolist()
+            res[key + ".psum_all"] = S.psum(
+                x.to(torch.bfloat16), ("pod", "data", "model")).float().tolist()
+            res[key + ".pmax_data"] = S.pmax(x, ("pod", "data")).tolist()
+            res[key + ".gather_model"] = S.all_gather(
+                x[None].to(torch.bfloat16), "model", 0).float().tolist()
+            res[key + ".constrain"] = S.constrain(x, P(None)) is x
+            try:
+                S.local_shard(torch.zeros(6, 2), P("model", None), name="leaf")
+                S.local_shard(torch.zeros(6, 2),
+                              P(("pod", "data", "model"), None), name="w_odd")
+            except ValueError as e:
+                res[key + ".indivisible"] = str(e)
+    m = LM.make_local_mesh(n_model=2, device_type="cpu")
+    res["local_mesh"] = [LM.mesh_axis_names(m), list(m.axis_sizes)]
+    for fn in (lambda: LM.make_production_mesh(device_type="cpu"),
+               lambda: S.make_mesh((3,), ("data",), "cpu")):
+        try:
+            fn()
+        except ValueError as e:
+            res.setdefault("refused", []).append(str(e))
+    with open(f"{out}.{rank}.json", "w") as fh:
+        json.dump(res, fh)
+
+
+# ZeRO-1 and elastic restore (tests/test_torch_zero1.py) ----------------------
+
+ZERO1_TREE = {"w": (96, 16), "e": (128, 8), "b": (16,), "s": (3, 5)}
+ZERO1_SPECS = {"w": (None, "model"), "e": ("model", None), "b": (None,),
+               "s": (None, None)}
+ZERO1_CFG = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256)
+
+
+def zero1_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in ZERO1_TREE.items()}
+
+
+def port_zero1_job(rank, world, out, phase):
+    """Phase "steps" on (4, 1) and (2, 2): ZeRO-1 AdamW steps and the clip's
+    norm with model-sharded leaves; a data-parallel Trainer with and
+    without ZeRO-1, saving a checkpoint at step 2. Phase "resume" on
+    (2, 1): that checkpoint restored, then steps 3 and 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer, run_config
+    from repro_torch.models import sharding as S
+    from repro_torch.models.sharding import P
+    from repro_torch.train import optimizer as O
+    torch.set_num_threads(1)     # one thread: bit-reproducible products
+    res = {}
+    cfg = get_config("smollm-360m").reduced(**ZERO1_CFG)
+    kw = dict(seq=16, batch=8, lr=3e-3, seed=0, device="cpu")
+    if phase == "steps":
+        p0, grads = zero1_tree(1), [zero1_tree(2 + i) for i in range(2)]
+        for shape in ((4, 1), (2, 2)):
+            mesh = S.make_mesh(shape, ("data", "model"), "cpu")
+            key = "x".join(map(str, shape))
+            pspecs = {k: P(*v) for k, v in ZERO1_SPECS.items()}
+            mu = O.adamw_pspecs(pspecs, {k: torch.empty(s) for k, s in
+                                         ZERO1_TREE.items()},
+                                use_zero1=True, dax=("data",)).mu
+            params = {k: S.local_shard(torch.from_numpy(v), pspecs[k],
+                                       mesh).clone() for k, v in p0.items()}
+            state = O.adamw_init(params, pspecs, mu, mesh)
+            for i, g in enumerate(grads):
+                gl = {k: S.local_shard(torch.from_numpy(v), pspecs[k], mesh)
+                      for k, v in g.items()}
+                _, state, gnorm = O.adamw_update(
+                    gl, state, params, lr=1e-2, grad_clip=5.0,
+                    param_pspecs=pspecs, mu_pspecs=mu, mesh=mesh)
+                res[f"{key}.gnorm{i}"] = gnorm
+            for k in params:
+                res[f"{key}.p.{k}"] = S.gather(params[k], pspecs[k], mesh)
+                res[f"{key}.mu.{k}"] = S.gather(state.mu[k], mu[k], mesh)
+                res[f"{key}.mu_local.{k}"] = torch.tensor(
+                    state.mu[k].numel(), dtype=torch.float32)
+        mesh = S.make_mesh((4, 1), ("data", "model"), "cpu")
+        trs = {z: Trainer(cfg, run_config(zero1=z), mesh=mesh, **kw)
+               for z in (True, False)}
+        for i in range(4):
+            for z, tr in trs.items():
+                res[f"loss{int(z)}.{i}"] = tr.step(i)["loss"]
+            if i == 1:
+                trs[True].save(f"{out}.ck", 2)
+                for k, v in trs[True].params.items():
+                    res[f"p2.{k}"] = v.clone()
+        for z, tr in trs.items():
+            for k, v in tr.params.items():
+                res[f"p4_{int(z)}.{k}"] = v
+            res[f"moment_bytes{int(z)}"] = torch.tensor(
+                float(tr.moment_bytes()))
+    else:
+        mesh = S.make_mesh((2, 1), ("data", "model"), "cpu")
+        tr = Trainer(cfg, run_config(zero1=True), mesh=mesh, **kw)
+        res["restored_at"] = torch.tensor(float(tr.restore(f"{out}.ck")))
+        for k, v in tr.params.items():
+            res[f"p2.{k}"] = v.clone()
+        for k in tr.opt.mu:
+            res[f"mu.{k}"] = S.gather(tr.opt.mu[k], tr.pspecs.mu[k], mesh)
+        for i in (2, 3):
+            res[f"loss.{i}"] = tr.step(i)["loss"]
+        for k, v in tr.params.items():
+            res[f"p4.{k}"] = v
+    np.savez(f"{out}.{phase}.{rank}.npz",
+             **{k: torch.as_tensor(v).detach().float().numpy()
+                for k, v in res.items()})
