@@ -91,10 +91,9 @@ class Trainer:
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(seed))
         self.params = trainable(self.model)
-        self.pspecs = optimizer_pspecs(self.model) if mesh is not None \
-            else None
-        self.opt = adamw_init(self.params) if mesh is None else adamw_init(
-            self.params, self.model.param_pspecs(), self.pspecs.mu, mesh)
+        self.pspecs = optimizer_pspecs(self.model)
+        self.opt = adamw_init(self.params, self.model.param_pspecs(),
+                              self.pspecs.mu, mesh)
         self.step_fn = make_train_step(self.model, lr=lr, mesh=mesh)
         self.stream = ZipfLMStream(vocab=cfg.vocab, seq=seq, batch=batch,
                                    seed=seed + 1, device=self.device)

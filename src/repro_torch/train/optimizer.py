@@ -120,11 +120,13 @@ def global_sq_norm(grads: Tree, param_pspecs: Optional[Dict[str, P]],
                    mesh: Optional[S.Mesh], device) -> torch.Tensor:
     """Sum of squares of every gradient as of one device: a leaf sharded
     over mesh axes adds its local squares to a ``psum`` over them, a
-    replicated leaf counts once."""
+    replicated leaf counts once. With no mesh (or a leaf on no live axis)
+    the leaves are summed in their order, as one device does."""
     parts: Dict[tuple, torch.Tensor] = {}
     for k, g in grads.items():
         spec = param_pspecs.get(k, P()) if param_pspecs is not None else P()
-        axes = mesh.live_axes(tuple(a for e in spec for a in S.entry_axes(e)))
+        axes = () if mesh is None else mesh.live_axes(
+            tuple(a for e in spec for a in S.entry_axes(e)))
         sq = torch.sum(torch.square(g.float())).to(device)
         parts[axes] = parts[axes] + sq if axes in parts else sq
     return sum(S.psum(v, axes, mesh) for axes, v in parts.items())
@@ -149,13 +151,8 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
     mesh = mesh if mesh is not None else S.get_mesh()
     step = state.step + 1
     dev = step.device
-    if grad_clip is not None and mesh is not None:
+    if grad_clip is not None:
         gnorm = torch.sqrt(global_sq_norm(grads, param_pspecs, mesh, dev))
-        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-    elif grad_clip is not None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())).to(dev)
-                               for g in grads.values()))
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
     else:

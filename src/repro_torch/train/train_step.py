@@ -11,15 +11,16 @@ the model's plain forms: the model must run with
 ``RunConfig(attn_impl="plain")``, since a kernel refuses an input that
 requires grad.
 
-On a mesh (``make_train_step(..., mesh=)``, default the active one) the
-step is data-parallel: it takes the global batch, keeps this rank's rows
-of ``model.input_pspecs`` (the data axes), computes the local loss and
+The step is data-parallel over the mesh (``make_train_step(..., mesh=)``,
+default the active one; with none it is one device, where every data axis
+has one rank): it takes the global batch, keeps this rank's rows of
+``model.input_pspecs`` (the data axes), computes the local loss and
 gradients (microbatches averaged first under ``grad_accum``), and averages
 both over the data axes (``psum / n_data``) before the codec and the
 update; with ``RunConfig.use_zero1`` the update is ZeRO-1
-(``optimizer.adamw_update``). The model axis must have one rank: the
-backward of the tensor- and expert-parallel collectives is not ported
-(ROADMAP A13c).
+(``optimizer.adamw_update``). On one rank each of these is the identity.
+The model axis must have one rank: the backward of the tensor- and
+expert-parallel collectives is not ported (ROADMAP A13c).
 """
 from __future__ import annotations
 
@@ -95,30 +96,19 @@ def make_train_step(model, lr: float = 3e-4, weight_decay: float = 0.1,
     metrics)``. Honors ``RunConfig.grad_accum`` (``loss_and_grads``) and
     ``RunConfig.grad_compress`` (the gradients through the int8 codec, its
     noise from ``generator``). ``metrics`` holds 0-d tensors: ``loss``,
-    ``grad_norm``, ``step``. On ``mesh`` the step is data-parallel (and
+    ``grad_norm``, ``step``. The step is data-parallel over ``mesh`` (and
     ZeRO-1 under ``use_zero1``): ``opt_state`` must be laid out by
-    ``optimizer_pspecs`` (``adamw_init(..., mu_pspecs=...)``)."""
+    ``optimizer_pspecs`` (``adamw_init(..., mu_pspecs=...)``; on one rank
+    that is ``adamw_init(params)``'s layout)."""
     run = model.run
     params = trainable(model)
     mesh = mesh if mesh is not None else S.get_mesh()
-    if mesh is None:
-        def train_step(opt_state: AdamWState, batch, generator):
-            loss, grads = loss_and_grads(model, batch, run.grad_accum)
-            if run.grad_compress:
-                grads = roundtrip_tree(grads, generator)
-            _, opt_state, gnorm = adamw_update(
-                grads, opt_state, params, lr=lr, weight_decay=weight_decay)
-            return opt_state, {"loss": loss, "grad_norm": gnorm,
-                               "step": opt_state.step}
-
-        return train_step
-
-    if mesh.size(run.model_axis) > 1:
+    if mesh is not None and mesh.size(run.model_axis) > 1:
         raise NotImplementedError(
             "training on a model axis of more than one rank: the backward "
             "of the tensor- and expert-parallel collectives is ROADMAP A13c")
     dax = run.data_axes
-    n_data = mesh.size(dax)
+    n_data = 1 if mesh is None else mesh.size(dax)
     pspecs = model.param_pspecs()
     mu_pspecs = optimizer_pspecs(model).mu
 

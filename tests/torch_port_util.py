@@ -180,6 +180,25 @@ MESH_DENSE = dict(n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_ff=128,
 MESH_B, MESH_S = 4, 16               # batch, prefill length
 MESH_SMAX, MESH_START, MESH_STEPS = 16, 6, 4   # decode crosses position 8
 MESH_T = 32                           # MoE tokens
+MESH_SLOT_LENS = [7, 9, 8, 11]        # per-slot lengths of one more step
+# 12 query heads on 3 KV heads (a group of 4) over 2 model ranks: 6 heads a
+# rank, which split a group, so each reads its KV head by index
+MESH_UNEVEN = dict(n_layers=2, d_model=96, n_heads=12, n_kv_heads=3,
+                   d_ff=128, vocab=256)
+
+
+def _fan_in_weights(cfg, rng, prefix, out):
+    """Every parameter of ``cfg``'s DecoderLM drawn at its per-layer
+    fan-in (well-conditioned attention), norms near 1."""
+    from repro_torch.models.api import RunConfig, build_model
+    for k, (shape, _) in build_model(cfg, RunConfig(), device="meta") \
+            .param_shapes().items():
+        if k.endswith(("ln1", "ln2", "norm")):
+            out[prefix + k] = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            fan = shape[-2] if len(shape) == 3 else (
+                1 / 0.02 ** 2 if k == "embed" else shape[0])
+            out[prefix + k] = rng.standard_normal(shape) / np.sqrt(fan)
 
 
 def mesh_inputs(path):
@@ -187,18 +206,10 @@ def mesh_inputs(path):
     as one .npz that both sides read. Dense weights at their per-layer
     fan-in (well-conditioned attention), MoE as tests/test_torch_moe.py."""
     from repro_torch.configs import get_config
-    from repro_torch.models.api import RunConfig, build_model
     rng = np.random.default_rng(17)
     cfg = get_config("qwen3-32b").reduced(**MESH_DENSE)
     out = {}
-    for k, (shape, _) in build_model(cfg, RunConfig(), device="meta") \
-            .param_shapes().items():
-        if k.endswith(("ln1", "ln2", "norm")):
-            out["w." + k] = 1.0 + 0.1 * rng.standard_normal(shape)
-        else:
-            fan = shape[-2] if len(shape) == 3 else (
-                1 / 0.02 ** 2 if k == "embed" else shape[0])
-            out["w." + k] = rng.standard_normal(shape) / np.sqrt(fan)
+    _fan_in_weights(cfg, rng, "w.", out)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     out["tokens"] = rng.integers(0, cfg.vocab, (MESH_B, MESH_S))
     cache = np.zeros((2, cfg.n_layers, MESH_B, MESH_SMAX, hkv, hd))
@@ -218,6 +229,8 @@ def mesh_inputs(path):
             "r_down": ((e.dense_residual_ff, d), 0.1)}.items():
         out["moe." + k] = rng.standard_normal(shape) * sc
     out["moe_x"] = rng.standard_normal((2, MESH_T // 2, d))
+    _fan_in_weights(get_config("qwen3-32b").reduced(**MESH_UNEVEN), rng,
+                    "u.", out)
     np.savez(path, **{k: np.asarray(v, np.float32 if v.dtype.kind == "f"
                                      else np.int32) for k, v in out.items()})
 
@@ -278,6 +291,31 @@ def jax_mesh_main(inputs, out):
             logits, cache = step(params, cache, batch)
             res[f"dec_logits_{t}"] = logits
         res["dec_k"], res["dec_v"] = cache["k"], cache["v"]
+        # per-slot lengths: the scatter branch, on the same sharded cache
+        res["slot_logits"], cache = step(params, cache, {
+            "tokens": jnp.asarray(z["dec_tokens"][:, :1]),
+            "cache_len": jnp.asarray(MESH_SLOT_LENS, jnp.int32)})
+        res["slot_k"] = cache["k"]
+        # uneven head groups: forward, then sharded decode from empty
+        ucfg = get_config("qwen3-32b").reduced(**MESH_UNEVEN)
+        um = build_model(ucfg, RunConfig(q_chunk=8, kv_chunk=8,
+                                         data_axes=("data",),
+                                         sharded_decode=True))
+        uparams = _jax_tree(z, "u.")
+        pshape = ShapeSpec("p", MESH_S, MESH_B, "prefill")
+        res["uneven_logits"] = jax.jit(um.forward, in_shardings=(
+            _shard(mesh, um.param_pspecs()), _shard(mesh, um.input_pspecs(
+                pshape))))(uparams, {"tokens": jnp.asarray(z["tokens"])})
+        ustep = jax.jit(um.decode_step, in_shardings=(
+            _shard(mesh, um.param_pspecs()), _shard(mesh, um.cache_pspecs(
+                shape)), _shard(mesh, um.input_pspecs(shape))))
+        ucache = {k: np.zeros(v.shape, np.float32)     # uncommitted
+                  for k, v in um.init_cache(shape).items()}
+        for t in range(MESH_STEPS):
+            logits, ucache = ustep(uparams, ucache, {
+                "tokens": jnp.asarray(z["tokens"][:, t:t + 1]),
+                "cache_len": jnp.asarray(t, jnp.int32)})
+            res[f"uneven_dec_{t}"] = logits
     # expert-parallel MoE on (1, 4) with drops, and FSDP experts on (2, 2)
     acfg = get_config("arctic-480b").reduced()
     w = _jax_tree(z, "moe.")
@@ -324,16 +362,22 @@ def port_mesh_job(rank, world, inputs, out):
         m = model(mesh)
         res["tp_logits"] = m.forward({"tokens": torch.from_numpy(
             z["tokens"])})
-        # the init on the mesh keeps the single-device draw's slices
-        one = build_model(cfg, RunConfig(), device="cpu").init_params(
-            torch.Generator().manual_seed(3))
-        with S.use_mesh(mesh):
-            sh = build_model(cfg, RunConfig(), device="cpu").init_params(
-                torch.Generator().manual_seed(3))
-        specs = sh.param_pspecs()
-        res["init_equal"] = torch.tensor(float(all(
-            torch.equal(v, S.local_shard(one.state_dict()[k], specs[k], mesh))
-            for k, v in sh.state_dict().items())))
+        # the init on the mesh keeps the single-device draw's slices, at
+        # both scales and with the head groups split unevenly
+        same = []
+        for c, fan in ((cfg, False), (cfg, True),
+                       (get_config("qwen3-32b").reduced(**MESH_UNEVEN),
+                        True)):
+            one = build_model(c, RunConfig(), device="cpu").init_params(
+                torch.Generator().manual_seed(3), layer_fan_in=fan)
+            with S.use_mesh(mesh):
+                sh = build_model(c, RunConfig(), device="cpu").init_params(
+                    torch.Generator().manual_seed(3), layer_fan_in=fan)
+            specs = sh.param_pspecs()
+            same += [torch.equal(v, S.local_shard(one.state_dict()[k],
+                                                  specs[k], mesh))
+                     for k, v in sh.state_dict().items()]
+        res["init_equal"] = torch.tensor(float(all(same)))
         # decode on (2, 2): sharded, gathered, per-slot lengths
         mesh = S.make_mesh((2, 2), ("data", "model"), "cpu")
         shape = ShapeSpec("d", MESH_SMAX, MESH_B, "decode")
@@ -350,43 +394,28 @@ def port_mesh_job(rank, world, inputs, out):
                     "cache_len": torch.tensor(MESH_START + t)})
                 res[f"{name}_logits_{t}"] = logits
             res[f"{name}_k"], res[f"{name}_v"] = cache["k"], cache["v"]
-        lens = torch.tensor([7, 9, 8, 11])
+        lens = torch.tensor(MESH_SLOT_LENS)
         res["slot_logits"], cache = m.decode_step(cache, {
             "tokens": toks[:, :1],
             "cache_len": local_rows(lens, mesh, P(("data",)))})
         res["slot_k"] = cache["k"]
-        # 12 query heads on 3 KV heads (a group of 4) over 2 model ranks:
-        # 6 heads a rank, which split a group, so each reads its KV head by
-        # index; against the port on one device
-        ucfg = get_config("qwen3-32b").reduced(
-            n_layers=2, d_model=96, n_heads=12, n_kv_heads=3, d_ff=128,
-            vocab=256)
-        one = build_model(ucfg, RunConfig(q_chunk=8, kv_chunk=8),
-                          device="cpu").init_params(
-            torch.Generator().manual_seed(4), layer_fan_in=True)
+        # uneven head groups (MESH_UNEVEN) on (2, 2)
+        ucfg = get_config("qwen3-32b").reduced(**MESH_UNEVEN)
+        ufull = {k[2:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("u.")}
         with S.use_mesh(mesh):
             um = build_model(ucfg, RunConfig(q_chunk=8, kv_chunk=8,
                                              data_axes=("data",),
                                              sharded_decode=True),
-                             device="cpu").init_params(
-                torch.Generator().manual_seed(4), layer_fan_in=True)
-        utoks = torch.from_numpy(z["tokens"])
-        res["uneven_heads_err"] = (um.forward({"tokens": local_rows(
-            utoks, mesh, bspec)}) - local_rows(one.forward(
-                {"tokens": utoks}), mesh, P(("data",), None, None))
-        ).abs().max()
-        ucache = {kv: torch.zeros(2, MESH_B, MESH_SMAX, 3, 8)
-                  for kv in "kv"}
-        lcache = um.init_cache(shape)
+                             device="cpu")
+        um.load_state_dict(S.shard_state_dict(ufull, um.param_pspecs(),
+                                              mesh))
+        utoks = local_rows(z["tokens"], mesh, bspec)
+        res["uneven_logits"] = um.forward({"tokens": utoks})
+        ucache = um.init_cache(shape)
         for t in range(MESH_STEPS):
-            want, _ = one.decode_step(ucache, {
+            res[f"uneven_dec_{t}"], ucache = um.decode_step(ucache, {
                 "tokens": utoks[:, t:t + 1], "cache_len": torch.tensor(t)})
-            got, _ = um.decode_step(lcache, {
-                "tokens": local_rows(utoks, mesh, bspec)[:, t:t + 1],
-                "cache_len": torch.tensor(t)})
-            res["uneven_heads_err"] = torch.maximum(
-                res["uneven_heads_err"],
-                (got - local_rows(want, mesh, bspec)).abs().max())
         # expert-parallel MoE (drops) on (1, 4); FSDP experts on (2, 2)
         acfg = get_config("arctic-480b").reduced()
         w = {k[4:]: torch.from_numpy(z[k]) for k in z.files
