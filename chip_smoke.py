@@ -33,7 +33,7 @@ JSON line:
            wrappers) at the main paths' shapes, timed in turns
 
 then ten paths, each driven with the launch counters zeroed just before
-it and read just after it:
+it and read just after it (as every path below is):
 
   smollm-360m  model: full-width prefill forward (flash-attention kernel)
                against token-by-token decode (flash-decode kernel) and
@@ -96,6 +96,28 @@ it and read just after it:
                model) at 40 requests a virtual second: every request ok,
                each one's tokens equal to a solo replica of the sandbox it
                was admitted to
+
+and then the mesh paths, four ranks each, all processes on ``cuda:0`` over
+gloo, each held against the port on one device with the same weights
+(run first and freed before the ranks start):
+
+  mesh/qwen3-32b, mesh/arctic-480b, mesh/train-smollm-360m
+               tensor-parallel prefill and sequence-sharded decode; expert-
+               parallel and FSDP MoE; data-parallel training with ZeRO-1
+               and a resume onto another mesh (the comments there say more)
+  mesh/rwkv6-7b, mesh/zamba2-2.7b, mesh/whisper-small
+               each family tensor-parallel on (1, 4) at full width, an fp32
+               cut gated at 1e-4 and a bf16 cut at 0.5: K3 at 16 of 64
+               heads; K4 at 20 of 80 SSD heads behind the resharded
+               in_proj, K2 and K1 at 8 of 32 heads of 80, batch 2 on the
+               replicated KV cache and batch 1 on the head-sharded one; K2
+               and K1 at 3 of 12 heads with the caches replicated. The
+               three run in one spawn, each rank zeroing its counters
+               before a family and reading them after it
+  mesh/train-qwen3-32b
+               the train step tensor-parallel at full width in fp32 (depth
+               1) on (1, 4), and on (2, 2) with ZeRO-1: losses and the
+               step-1 parameters against one device; no kernel
 
 then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
 error, time, plain time, library time, bound; for WKV6 and SSD also the
@@ -223,6 +245,10 @@ def profiled_ms(fn, calls: int = 10) -> Optional[float]:
              for ev in prof.key_averages()
              if ev.device_type == torch.autograd.DeviceType.CUDA)
     return us / calls / 1e3 if us > 0 else None
+
+
+def dt_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1002,6 +1028,35 @@ def phase_kernels() -> dict:
                          [0, 177], plan=(2, 128)),
         check_decode_lse("decode-lse/split/fp32", 4, 2048, 15, 5, 64, f32,
                          [0, 100, 1500, 2048]),
+        # K1-K4 at the shapes one rank of the family mesh paths gives them
+        # on (1, 4), in both dtypes the legs run: rwkv6-7b's K3 at 16 of 64
+        # heads, zamba2-2.7b's K4 at 20 of 80 SSD heads and its shared
+        # attention's K2 and K1 at 8 of 32 heads of 80 (the decode steps'
+        # last length, batch 2 and 1), whisper-small's K2 (encoder over
+        # 1500 frames, the 32-token decoder and its cross attention) and
+        # K1 (self cache, the 1500-long cross cache) at 3 of 12 heads
+        *[c for dt in (f32, bf16) for c in (
+            check_wkv6(f"wkv6/mesh-rwkv6-rank/{dt_name(dt)}", 2, 256, 16,
+                       64, 64, 64, dt, state=False),
+            check_ssd(f"ssd/mesh-zamba2-rank/{dt_name(dt)}", 2, 256, 20, 64,
+                      64, 64, dt, True, state=False),
+            check_flash(f"flash/mesh-zamba2-rank/{dt_name(dt)}", 2, 256, 256,
+                        8, 8, 80, dt, True),
+            check_decode(f"decode/mesh-zamba2-rank-b2/{dt_name(dt)}", 2,
+                         MAX_SEQ, 8, 8, 80, dt, [8, 8], scalar_len=8),
+            check_decode(f"decode/mesh-zamba2-rank-b1/{dt_name(dt)}", 1,
+                         MAX_SEQ, 8, 8, 80, dt, [8], scalar_len=8),
+            check_flash(f"flash/mesh-whisper-enc-rank/{dt_name(dt)}", 2,
+                        1500, 1500, 3, 3, 64, dt, False),
+            check_flash(f"flash/mesh-whisper-dec-rank/{dt_name(dt)}", 2, 32,
+                        32, 3, 3, 64, dt, True),
+            check_flash(f"flash/mesh-whisper-cross-rank/{dt_name(dt)}", 2,
+                        32, 1500, 3, 3, 64, dt, False),
+            check_decode(f"decode/mesh-whisper-self-rank/{dt_name(dt)}", 2,
+                         MAX_SEQ, 3, 3, 64, dt, [8, 8], scalar_len=8),
+            check_decode(f"decode/mesh-whisper-cross-rank/{dt_name(dt)}", 2,
+                         1500, 3, 3, 64, dt, [1500, 1500], scalar_len=1500),
+        )],
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
         check_wkv6("wkv6/main/bf16", 1, 256, 64, 64, 64, 64, bf16,
@@ -2089,7 +2144,10 @@ def run_mesh(tag, fn, *args, world=MESH_RANKS) -> tuple:
 def rank_begin():
     """A rank's start: cuda:0, the library phase_build built (with
     ``-Xptxas -v``, so under its own hash: a rank asking for the plain
-    build would compile again), the counters at 0."""
+    build would compile again), the counters at 0. Four processes share
+    the card's memory: each allocator maps its blocks in expandable
+    segments, so that freed memory is not held in fragments."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
     from repro_torch.kernels import build, ops
     build.load(verbose_ptxas=True)
@@ -2698,6 +2756,518 @@ def phase_mesh_train(cfg) -> dict:
     return summed_launches(ranks + resumed)
 
 
+# -- mesh: RWKV6, Zamba2 and Whisper (one spawn for the three) ------------------
+#
+# Each family at full width on (1, 4), per leg an fp32 cut gated at
+# MESH_FP32_TOL against one device and a deeper bf16 cut gated at BF16_TOL
+# with the greedy agreement recorded. The three run in one spawn of ranks
+# (four processes' start and library load paid once); each rank zeroes its
+# launch counters before a family and reads them after it, so every path's
+# counts are its own (the ranks' sums).
+
+FAMILY_STEPS = 8        # decode steps a leg, from an empty cache
+FAMILY_TIMED = 4        # more steps with the collectives timed
+# zamba2's legs also run the controls of ``plain_control``. Its prefill is
+# held to ZAMBA2_PREFILL_TOL, read off them on the card (PERF.md §6):
+# at fp32 depth 12 one device's kernels and plain forms sit 6.0e-4 apart,
+# one ulp of the weights moves it 5.2e-4, the mesh's plain forms sit 4.8e-4
+# from one device's and the mesh 9.1e-4 (the logits reach 5.7), while a
+# mix-up of one rank's heads in one mixer moves it by orders more; fp32 is
+# held to the bound the one-device legs hold its two arithmetics to
+# (FP32_TOL). At bf16 depth 24 one ulp of the weights moves it 2.59 and the
+# mesh reads 1.13. Its decode keys keep the legs' limits.
+ZAMBA2_PREFILL_TOL = {"fp32-depth12": FP32_TOL, "bf16-depth24": 2.0}
+FAMILY_LEGS = {         # label, dtype, depth (None: full), tol, control
+    "rwkv6-7b": (("fp32-depth2", "float32", 2, MESH_FP32_TOL, False),
+                 ("bf16-depth8", "bfloat16", 8, BF16_TOL, False)),
+    "zamba2-2.7b": (("fp32-depth12", "float32", 12, MESH_FP32_TOL, True),
+                    ("bf16-depth24", "bfloat16", 24, BF16_TOL, True)),
+    "whisper-small": (("fp32-full", "float32", None, MESH_FP32_TOL, False),
+                      ("bf16-full", "bfloat16", None, BF16_TOL, False)),
+}
+FAMILY_INIT = {"rwkv6-7b": {}, "zamba2-2.7b": {"layer_fan_in": True},
+               "whisper-small": {"layer_fan_in": True}}
+
+
+def family_cfg(name, dtype, depth):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return replace(cfg, dtype=dtype, n_layers=depth or cfg.n_layers)
+
+
+def synced(fn):
+    """``fn()`` and its wall seconds, the device synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_family(model, timed_pass=False) -> dict:
+    """One leg of a family path on ``model`` (one device or a rank):
+    RWKV6 and Zamba2 prefill the MESH_B x MESH_S prompt (timed twice) and
+    decode FAMILY_STEPS steps from an empty cache, Zamba2 at batch 2 (its
+    cache replicated over the model axis on a mesh) and batch 1 (its heads
+    sharded); Whisper encodes MESH_B x 1500 frames drawn on the card, runs
+    ``forward`` over the first 32 prompt tokens, fills the cross cache
+    (``prefill_cross``) and decodes FAMILY_STEPS steps. Logits go to the
+    host. With ``timed_pass``, FAMILY_TIMED more steps on a fresh cache
+    with the collectives timed."""
+    from repro_torch.configs.base import ShapeSpec
+
+    cfg = model.cfg
+    prompt, steps = mesh_tokens(cfg)
+    rec = {}
+    whisper = cfg.family == "audio"
+    with torch.inference_mode():
+        if whisper:
+            g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+            frames = torch.randn((MESH_B, model.enc_seq, cfg.d_model),
+                                 generator=g, device="cuda").to(
+                                     model.embed.dtype)
+            enc, rec["encode_s"] = synced(lambda: model.encode(frames))
+            rec["encode"] = enc.float().cpu()
+            del enc
+            batch = {"frames": frames, "tokens": prompt[:, :32]}
+        else:
+            batch = {"tokens": prompt}
+        for key in ("prefill_s", "prefill_again_s"):
+            logits, rec[key] = synced(lambda: model.forward(batch))
+        rec["prefill"] = logits.float().cpu()
+        del logits
+
+        def fresh(b):
+            cache = model.init_cache(ShapeSpec("mesh", MAX_SEQ, b, "decode"))
+            if whisper:
+                model.prefill_cross(frames[:b], cache)
+            return cache
+
+        batches = (MESH_B, 1) if cfg.family == "hybrid" else (MESH_B,)
+        for b in batches:
+            cache, prefill_cross_s = synced(lambda: fresh(b))
+            outs = []
+
+            def run():
+                for t in range(FAMILY_STEPS):
+                    outs.append(model.decode_step(cache, {
+                        "tokens": steps[:b, t:t + 1], "cache_len": t})[0])
+            _, wall = synced(run)
+            key = "decode" if b == MESH_B else f"decode_b{b}"
+            rec[key] = torch.stack(outs).float().cpu()
+            rec[key + "_ms_per_step"] = wall / FAMILY_STEPS * 1e3
+            if whisper:
+                rec["prefill_cross_s"] = prefill_cross_s
+        if timed_pass:
+            cache = fresh(MESH_B)
+            with timed_collectives() as tc:
+                def run():
+                    for t in range(FAMILY_TIMED):
+                        model.decode_step(cache, {
+                            "tokens": steps[:, t:t + 1], "cache_len": t})
+                _, wall = synced(run)
+            rec["collectives"] = {
+                "steps": FAMILY_TIMED,
+                "calls_per_step": tc.calls / FAMILY_TIMED,
+                "ms_per_step": wall / FAMILY_TIMED * 1e3,
+                "collective_ms_per_step": tc.seconds / FAMILY_TIMED * 1e3,
+                "share": tc.seconds / wall}
+    return rec
+
+
+def drive_plain(model) -> dict:
+    """``drive_family``'s logits on the plain forms of the same weights
+    (``attn_impl="plain"``): the control that says how far two sound
+    arithmetics of the model sit apart."""
+    from dataclasses import replace
+
+    run = model.run
+    model.run = replace(run, attn_impl="plain")
+    try:
+        rec = drive_family(model)
+    finally:
+        model.run = run
+    return {k: rec[k] for k in ("prefill", "decode", "decode_b1") if k in rec}
+
+
+def ulp_nudge(model, seed) -> None:
+    """Moves every floating parameter of ``model`` by one ulp, up or down
+    at random from ``seed`` (zeros stay): what one rounding of the weights
+    does, the floor against which a mesh's other rounding is read."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.dtype in ints:
+                bits = t.view(ints[t.dtype])
+                step = torch.randint(0, 2, t.shape, generator=g,
+                                     device=t.device, dtype=bits.dtype)
+                bits.add_(torch.where(t != 0, 2 * step - 1, 0))
+
+
+def rank_fault(model, undo=False) -> None:
+    """Zamba2's first mixer reading its SSD decays (``A_log``) from the next
+    rank's heads, a rank's share away (``undo`` puts them back): the fault
+    a mix-up of one rank's heads makes, which a leg's limit must see."""
+    with torch.no_grad():
+        a = model.mamba["A_log"][0, 0]
+        shift = a.shape[0] // MESH_RANKS
+        a.copy_(a.roll(-shift if undo else shift))
+
+
+def family_model(name, dtype, depth, mesh=None):
+    from repro_torch.models.api import RunConfig, build_model
+    from repro_torch.models import sharding as S
+
+    with S.use_mesh(mesh):
+        model = build_model(family_cfg(name, dtype, depth), RunConfig(),
+                            device="cuda")
+    return model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED),
+        **FAMILY_INIT[name])
+
+
+def mesh_families_rank(rank, world, out):
+    """One rank of the three family paths on (data 1, model 4): each
+    family's legs with this rank's launch counters zeroed before the family
+    and read after it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharding as S
+
+    rank_begin()
+    mesh = S.make_mesh((1, MESH_RANKS), ("data", "model"), "cuda")
+    rec = {}
+    for name, legs in FAMILY_LEGS.items():
+        ops.reset_launch_counts()
+        fam = {}
+        for label, dtype, depth, _, control in legs:
+            torch.cuda.reset_peak_memory_stats()
+            model = family_model(name, dtype, depth, mesh)
+            res = drive_family(model, timed_pass=True)
+            res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            if control:
+                res["plain"] = drive_plain(model)
+            if rank:
+                for k in ("encode", "prefill", "decode", "decode_b1",
+                          "plain"):
+                    res.pop(k, None)
+            fam[label] = res
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        fam["launches"] = ops.launch_counts()
+        rec[name] = fam
+    rank_end(out, rank, rec)
+
+
+_FAMILY_RANKS = {}
+
+
+def mesh_families_spawn() -> dict:
+    """The yardsticks (one device, each built and freed in turn), then one
+    spawn of ranks for the three families; cached for the three paths."""
+    from repro_torch.kernels import ops
+
+    if not _FAMILY_RANKS:
+        want = {}
+
+        def one_device(name, dtype, depth, control=False):
+            torch.cuda.reset_peak_memory_stats()
+            model = family_model(name, dtype, depth)
+            rec = drive_family(model)
+            rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            if control:
+                rec["plain"] = drive_plain(model)
+                keys = ("prefill", "decode", "decode_b1")
+                rank_fault(model)
+                rec["fault"] = {k: v for k, v in drive_family(model).items()
+                                if k in keys}
+                rank_fault(model, undo=True)
+                ulp_nudge(model, SEED + 7)
+                rec["ulp"] = {k: v for k, v in drive_family(model).items()
+                              if k in keys}
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            return rec
+
+        for name, legs in FAMILY_LEGS.items():
+            for label, dtype, depth, _, control in legs:
+                want[name, label] = one_device(name, dtype, depth, control)
+        ops.reset_launch_counts()             # the yardsticks' do not count
+        ranks, wall = run_mesh("families", mesh_families_rank)
+        _FAMILY_RANKS.update(want=want, ranks=ranks, wall=wall)
+    return _FAMILY_RANKS
+
+
+def plain_control(got, one) -> dict:
+    """The mesh's distance from one device beside four controls: one
+    device on the kernels against one device on the plain forms, the mesh
+    on the plain forms against one device on them, one device with every
+    weight moved by one ulp (``ulp_nudge``) and one device with one rank's
+    heads mixed up (``rank_fault``), each against one device. The
+    prefill's distance also by position (the largest of each block of
+    FAMILY_STEPS positions): the decode legs see the first FAMILY_STEPS."""
+    out = {}
+    for key in ("prefill", "decode", "decode_b1"):
+        out[key] = {
+            "mesh_vs_one": max_abs_err(got[key], one[key]),
+            "one_kernels_vs_plain": max_abs_err(one[key], one["plain"][key]),
+            "mesh_plain_vs_one_plain": max_abs_err(got["plain"][key],
+                                                   one["plain"][key]),
+            "one_ulp_vs_one": max_abs_err(one["ulp"][key], one[key]),
+            "one_fault_vs_one": max_abs_err(one["fault"][key], one[key])}
+    d = (got["prefill"] - one["prefill"]).abs().amax(dim=(0, 2))
+    out["prefill_by_position_block"] = [
+        float(b.max()) for b in d.split(FAMILY_STEPS)]
+    out["logits_max_abs"] = float(one["prefill"].abs().max())
+    return out
+
+
+def phase_mesh_family(cfg) -> dict:
+    """mesh/rwkv6-7b (d 4096, 64 heads: K3 at 16 local heads, the wkv
+    state the rank's heads, the group norm's moments gathered),
+    mesh/zamba2-2.7b (80 SSD heads: K4 at 20 local heads behind the
+    resharded in_proj; the shared attention's K2 and K1 at 8 of 32 heads of
+    80; batch 2 on the replicated KV cache, batch 1 on the head-sharded
+    one; ``layer_fan_in`` weights, ROADMAP §C3) or mesh/whisper-small
+    (12 + 12 layers, 1500 frames: K2 causal, non-causal and cross and K1
+    on the self and the 1500-long cross cache at 3 of 12 heads;
+    ``layer_fan_in`` weights, ROADMAP §C9), each on (1, 4) against one
+    device on the same weights."""
+    run = mesh_families_spawn()
+    ranks, want = run["ranks"], run["want"]
+    legs = []
+    for label, dtype, depth, tol, control in FAMILY_LEGS[cfg.name]:
+        got = ranks[0][cfg.name][label]
+        one = want[cfg.name, label]
+        # every comparison is made (and printed) before any gate is read
+        rec = lm_compare(label, {k: got[k] for k in ("prefill", "decode")},
+                         one, tol, gated=False)
+        if "decode_b1" in got:
+            b1 = lm_compare(label + "-b1", {"decode": got["decode_b1"]},
+                            {"decode": one["decode_b1"]}, tol, gated=False)
+            rec.update({f"b1_{k}": v for k, v in b1.items()
+                        if k.startswith("decode")})
+        if "encode" in got:
+            rec["encode_max_abs_err"] = max_abs_err(got["encode"],
+                                                    one["encode"])
+        if control:
+            rec["control"] = plain_control(got, one)
+            rec["prefill_tol"] = ZAMBA2_PREFILL_TOL[label]
+        times = [k for k in got if k.endswith(("_s", "_ms_per_step"))]
+        rec.update(n_layers=depth or cfg.n_layers, dtype=dtype,
+                   ranks={k: [r[cfg.name][label][k] for r in ranks]
+                          for k in times + ["peak_memory_bytes",
+                                            "collectives"]},
+                   one_device={k: one[k] for k in times
+                               + ["peak_memory_bytes"]})
+        legs.append(rec)
+    launches = summed_launches([r[cfg.name] for r in ranks])
+    emit("mesh", path=f"mesh/{cfg.name}",
+         mesh={"data": 1, "model": MESH_RANKS},
+         transport="gloo, 4 processes on cuda:0",
+         spawn_wall_s_all_families=run["wall"], legs=legs, launches=launches)
+    for rec in legs:
+        for key in ("prefill_max_abs_err", "decode_max_abs_err",
+                    "b1_decode_max_abs_err", "encode_max_abs_err"):
+            tol = rec.get("prefill_tol", rec["tol"]) \
+                if key == "prefill_max_abs_err" else rec["tol"]
+            require(rec.get(key, 0.0) <= tol,
+                    f"{rec['leg']}: {key} {rec.get(key)} > {tol}")
+        if "control" in rec:        # the limit sees a rank's heads mixed up
+            fault = rec["control"]["prefill"]["one_fault_vs_one"]
+            require(fault > rec["prefill_tol"],
+                    f"{rec['leg']}: a rank fault moves the prefill {fault}, "
+                    f"within the limit {rec['prefill_tol']}")
+    return launches
+
+
+# -- mesh: tensor-parallel training (qwen3-32b) -----------------------------------
+
+QWEN3_TRAIN_DEPTH = 1       # 2.05 B parameters: see phase_mesh_train_qwen3
+QWEN3_TRAIN_STEPS = 3
+QWEN3_TRAIN_BATCH = 2
+QWEN3_TRAIN_LR = 3e-4       # the reference's build_step default
+QWEN3_SNAPSHOTS = (1, 3)    # steps after which parameters are compared
+QWEN3_TRAIN_LEGS = (("tp-1x4", (1, 4), False), ("tp-zero1-2x2", (2, 2), True))
+
+
+def qwen3_trainer(cfg, mesh=None, zero1=False):
+    from repro_torch.launch.train import Trainer, run_config
+
+    tr = Trainer(cfg, run_config(zero1=zero1), seq=TRAIN_SEQ,
+                 batch=QWEN3_TRAIN_BATCH, lr=QWEN3_TRAIN_LR, seed=SEED,
+                 device="cuda", mesh=mesh)
+    tr.model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         layer_fan_in=True)
+    return tr
+
+
+def snapshot_path(snap, step, name):
+    return os.path.join(snap, f"{step}.{name}.npy")
+
+
+def mesh_train_qwen3_rank(rank, world, out, snap):
+    """One rank of mesh/train-qwen3-32b: per leg QWEN3_TRAIN_STEPS steps
+    (the last with the collectives timed), and after each of
+    QWEN3_SNAPSHOTS this rank's parameter shards against its slice of the
+    one-device run's (memory-mapped from ``snap``). A leaf's elements are
+    counted on the ranks whose coordinate is 0 on every axis that does not
+    shard it, so each element counts once."""
+    import numpy as np
+
+    from repro_torch.models import sharding as S
+
+    rank_begin()
+    cfg = family_cfg("qwen3-32b", "float32", QWEN3_TRAIN_DEPTH)
+    rec = {}
+    for label, shape, zero1 in QWEN3_TRAIN_LEGS:
+        mesh = S.make_mesh(shape, ("data", "model"), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        tr = qwen3_trainer(cfg, mesh, zero1)
+        specs = tr.model.param_pspecs()
+        full = tr.model.param_shapes()
+        leg = {"losses": [], "grad_norms": [], "step_s": [], "params": {}}
+        for i in range(QWEN3_TRAIN_STEPS):
+            last = i + 1 == QWEN3_TRAIN_STEPS
+            with contextlib.ExitStack() as stack:
+                tc = stack.enter_context(timed_collectives()) if last \
+                    else None
+                m, wall = synced(lambda: tr.step(i))
+            leg["losses"].append(float(m["loss"]))
+            leg["grad_norms"].append(float(m["grad_norm"]))
+            leg["step_s"].append(wall)
+            if last:
+                leg["collectives"] = {"step_s": wall,
+                                      "collective_s": tc.seconds,
+                                      "calls": tc.calls,
+                                      "share": tc.seconds / wall}
+            if i + 1 not in QWEN3_SNAPSHOTS:
+                continue
+            counts = {"outside": 0, "outside_tight": 0, "elements": 0,
+                      "max_abs_diff": 0.0}
+            for k, p in tr.params.items():
+                own = {a for e in specs[k] for a in S.entry_axes(e)}
+                if any(mesh.coord[a] for a in mesh.axis_names
+                       if a not in own):
+                    continue
+                sl = S.local_slices(full[k][0], specs[k], mesh, k)
+                w, t = (torch.from_numpy(np.array(np.load(
+                    snapshot_path(snap, s, k), mmap_mode="r")[sl])).cuda()
+                    for s in (i + 1, "tight"))
+                g = p.detach().float()
+                over = (g - w).abs() > 1e-4 + 1e-3 * w.abs()
+                counts["outside"] += int(over.sum())
+                counts["outside_tight"] += int((over & t).sum())
+                counts["elements"] += w.numel()
+                counts["max_abs_diff"] = max(counts["max_abs_diff"],
+                                             float((g - w).abs().max()))
+                del w, t, g, over
+            leg["params"][i + 1] = counts
+        leg["moment_bytes"] = tr.moment_bytes()
+        leg["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        rec[label] = leg
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    rank_end(out, rank, rec)
+
+
+def phase_mesh_train_qwen3(cfg) -> dict:
+    """mesh/train-qwen3-32b: the training step tensor-parallel at full
+    width (d 5120, 64/8 heads of 128, d_ff 25600, vocab 151936) in fp32,
+    depth QWEN3_TRAIN_DEPTH, batch 2 x 256, lr 3e-4, the plain attention
+    forms, on per-layer fan-in weights: on (1, 4), and on (2, 2) with
+    ZeRO-1 (the moments' unsharded dimension over data). Depth 1 is 2.05 B
+    parameters, 8.2 GB in fp32 and 33 GB with the gradients and the AdamW
+    moments on one device; on (2, 2) a rank holds half of every sharded
+    leaf (the vocabulary-split embedding and head are 1.56 B of the 2.05 B)
+    and a quarter of the moments, ~18 GB at its peak, ~72 GB over the four
+    ranks with their CUDA contexts: depth 2 would not fit beside it. Gate,
+    as mesh/train-smollm-360m's: every step's loss within rtol 1e-5 of one
+    device's; after step 1 the parameters within atol 1e-4 / rtol 1e-3
+    where the step-1 gradient is at least 100 · eps; after step 3 the
+    count outside recorded. The one-device run goes first and is freed;
+    its parameters reach the ranks as .npy files they memory-map."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.train.train_step import loss_and_grads
+
+    small = family_cfg(cfg.name, "float32", QWEN3_TRAIN_DEPTH)
+    snap = os.path.join(MESH_DIR, f"qwen3-train-{os.getpid()}")
+    shutil.rmtree(snap, ignore_errors=True)
+    os.makedirs(snap)
+    torch.cuda.reset_peak_memory_stats()
+    one = qwen3_trainer(small)
+    _, grads = loss_and_grads(one.model, one.stream.batch_at(0))
+    for k, g in grads.items():
+        np.save(snapshot_path(snap, "tight", k),
+                (g.detach().abs() >= 100 * ADAMW_EPS).cpu().numpy())
+    del grads
+    one_rec = {"losses": [], "step_s": []}
+    for i in range(QWEN3_TRAIN_STEPS):
+        m, wall = synced(lambda: one.step(i))
+        one_rec["losses"].append(float(m["loss"]))
+        one_rec["step_s"].append(wall)
+        if i + 1 in QWEN3_SNAPSHOTS:
+            for k, p in one.params.items():
+                np.save(snapshot_path(snap, i + 1, k),
+                        p.detach().float().cpu().numpy())
+    one_rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    one_rec["params"] = sum(p.numel() for p in one.params.values())
+    one_rec["moment_bytes"] = one.moment_bytes()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks, wall = run_mesh("train-qwen3", mesh_train_qwen3_rank, snap)
+    shutil.rmtree(snap)
+    legs = []
+    for label, shape, zero1 in QWEN3_TRAIN_LEGS:
+        per = [r[label] for r in ranks]
+        losses = per[0]["losses"]
+        require(all(math.isfinite(x) for r in per
+                    for x in r["losses"] + r["grad_norms"]),
+                f"{label}: non-finite loss or grad norm")
+        require(all(r["losses"] == losses for r in per),
+                f"{label}: the ranks' losses differ")
+        for i, (a, b) in enumerate(zip(losses, one_rec["losses"])):
+            require(abs(a - b) <= 1e-5 * abs(b),
+                    f"{label} step {i + 1}: loss {a} vs one device {b}")
+        params = {s: {k: sum(r["params"][s][k] for r in per)
+                      if k != "max_abs_diff" else
+                      max(r["params"][s][k] for r in per)
+                      for k in per[0]["params"][s]} for s in QWEN3_SNAPSHOTS}
+        require(params[1]["elements"] == one_rec["params"],
+                f"{label}: compared {params[1]['elements']} elements of "
+                f"{one_rec['params']}")
+        require(params[1]["outside_tight"] == 0,
+                f"{label}: step-1 parameters vs one device: {params[1]}")
+        legs.append({"leg": label, "mesh": dict(zip(("data", "model"),
+                                                    shape)),
+                     "zero1": zero1, "losses": losses,
+                     "losses_one_device": one_rec["losses"],
+                     "grad_norms": per[0]["grad_norms"],
+                     "params_vs_one_device_by_step": params,
+                     "step_s_per_rank": [r["step_s"] for r in per],
+                     "collectives": [r["collectives"] for r in per],
+                     "moment_bytes_per_rank": [r["moment_bytes"]
+                                               for r in per],
+                     "peak_memory_bytes": [r["peak_memory_bytes"]
+                                           for r in per]})
+    emit("mesh", path="mesh/train-qwen3-32b", n_layers=QWEN3_TRAIN_DEPTH,
+         dtype="float32", batch=QWEN3_TRAIN_BATCH, seq=TRAIN_SEQ,
+         lr=QWEN3_TRAIN_LR, transport="gloo, 4 processes on cuda:0",
+         spawn_wall_s=wall, one_device=one_rec, legs=legs)
+    return summed_launches(ranks)
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -2726,9 +3296,14 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 # four ranks on cuda:0 over gloo; the counts are the ranks'
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
                 "mesh/arctic-480b": ("decode_attention", "flash_attention"),
-                "mesh/train-smollm-360m": ()}
+                "mesh/train-smollm-360m": (),
+                "mesh/rwkv6-7b": ("wkv6",),
+                "mesh/zamba2-2.7b": ("decode_attention", "flash_attention",
+                                     "ssd"),
+                "mesh/whisper-small": ("decode_attention", "flash_attention"),
+                "mesh/train-qwen3-32b": ()}
 NO_KERNEL_PATHS = ("train/smollm-360m", "train/whisper-small",
-                   "mesh/train-smollm-360m")
+                   "mesh/train-smollm-360m", "mesh/train-qwen3-32b")
 
 
 def run_path(name, serve_records) -> dict:
@@ -2743,13 +3318,18 @@ def run_path(name, serve_records) -> dict:
 
     head, _, tail = name.partition("/")
     cname = {"launch/serve": None,
-             "mesh/train-smollm-360m": "smollm-360m"}.get(
+             "mesh/train-smollm-360m": "smollm-360m",
+             "mesh/train-qwen3-32b": "qwen3-32b"}.get(
         name, tail if head in ("train", "launch", "mesh") else head)
     cfg = get_config(cname) if cname else None
     ops.reset_launch_counts()
     mesh_phase = {"mesh/qwen3-32b": phase_mesh_qwen3,
                   "mesh/arctic-480b": phase_mesh_arctic,
-                  "mesh/train-smollm-360m": phase_mesh_train}.get(name)
+                  "mesh/train-smollm-360m": phase_mesh_train,
+                  "mesh/rwkv6-7b": phase_mesh_family,
+                  "mesh/zamba2-2.7b": phase_mesh_family,
+                  "mesh/whisper-small": phase_mesh_family,
+                  "mesh/train-qwen3-32b": phase_mesh_train_qwen3}.get(name)
     if mesh_phase is not None:
         counts = mesh_phase(cfg)
         require(not any(ops.launch_counts().values()),

@@ -15,8 +15,8 @@ from ``torchrun``'s environment (``env://``), or as a group of one process
 the batch; ``--zero1`` shards the optimizer's moments over the data axis.
 The ``RunConfig`` is built here (q/kv chunk 64, ``seq_chunk`` 16,
 ``attn_impl="plain"``: gradients pass through the plain attention and
-recurrence forms, the kernels have none); ``launch/steps.py`` is ROADMAP
-A14. Checkpoints are written every ``--ckpt-every`` steps in the
+recurrence forms, the kernels have none), as the reference builds its
+own rather than going through ``launch/steps.py``. Checkpoints are written every ``--ckpt-every`` steps in the
 background and once at the end, by rank 0, with every leaf gathered to its
 global shape; ``--resume`` continues from the newest one, onto whatever
 mesh this run has, with the same data order (the stream is indexed by
@@ -76,9 +76,9 @@ def parser() -> argparse.ArgumentParser:
 
 class Trainer:
     """One model, its optimizer state and data stream: on one device, or,
-    with ``mesh``, this rank's part of a data-parallel run (the parameters
-    whole on every rank, the batch split, the moments sharded under
-    ``RunConfig.use_zero1``). What ``main`` drives, and what a caller that
+    with ``mesh``, this rank's part of a run over it (the batch split over
+    the data axis, the parameters this rank's shards of a model axis above
+    one, the moments sharded over data under ``RunConfig.use_zero1``). What ``main`` drives, and what a caller that
     wants the step itself (and its timings) drives directly."""
 
     def __init__(self, cfg, run: RunConfig, *, seq: int, batch: int,

@@ -141,16 +141,20 @@ def attention_reference(q, k, v, causal: bool = True,
 
 # -- MLPs ---------------------------------------------------------------------
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, down=torch.matmul):
+    """``down`` takes the down projection (on a mesh, the row-parallel
+    product and its sum: ``sharding.psum_matmul``)."""
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
-    return torch.matmul(F.silu(g) * u, w_down)
+    return down(F.silu(g) * u, w_down)
 
 
-def gelu_mlp(x, w_up, b_up, w_down, b_down):
-    """tanh-approximate GELU, the reference's (``jax.nn.gelu`` default)."""
+def gelu_mlp(x, w_up, b_up, w_down, b_down, down=torch.matmul):
+    """tanh-approximate GELU, the reference's (``jax.nn.gelu`` default).
+    ``down`` takes the down projection, as in ``swiglu``: on a mesh the
+    replicated ``b_down`` is then added once, after the sum."""
     h = torch.matmul(x, w_up) + b_up
-    out = torch.matmul(F.gelu(h, approximate="tanh").to(x.dtype), w_down)
+    out = down(F.gelu(h, approximate="tanh").to(x.dtype), w_down)
     return (out + b_down).to(x.dtype)
 
 

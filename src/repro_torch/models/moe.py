@@ -30,10 +30,16 @@ that a ``psum`` over the model axis completes. With
 the data axes and all-gathered just in time, per layer, a few experts at a
 time (``EXPERT_GATHER_BYTES`` bounds what a rank holds gathered: at arctic's
 width one expert's three matrices are 209 MB in bf16). arctic's dense
-residual runs tensor-parallel (columns, rows, ``psum``) beside it.
+residual runs tensor-parallel (columns, rows, ``psum``) beside it. The
+branch trains: the tokens and the router enter through ``copy_to`` (their
+gradients summed over the model axis), the partial output leaves through
+``psum``, and the FSDP gather is ``all_gather_rs``, whose backward
+reduce-scatters the experts' gradients over the data axes (so the train
+step only divides those leaves by the data ranks).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -190,10 +196,13 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
     sizes = r.group_sizes.tolist()                         # host sync
     chunk = n_local if gather is None else gather.chunk
     start = 0
+    gathered = []
     for e0 in range(0, n_local, chunk):
         e1 = min(e0 + chunk, n_local)
         wg, wu, wd = (w["e_gate"], w["e_up"], w["e_down"]) \
             if gather is None else gather(e0, e1)
+        if gather is not None and wg.requires_grad:
+            gathered += [wg, wu, wd]
         off = 0 if gather is None else e0
         for e in range(e0, e1):
             n = sizes[e]
@@ -206,8 +215,14 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
             out[start:start + n] = torch.matmul(h, wd[e - off])
             start += n
     out = out.float() * r.sel_p[:, None]
-    return torch.zeros((T, D), dtype=torch.float32,
-                       device=x.device).index_add_(0, r.sel_tok, out)
+    y = torch.zeros((T, D), dtype=torch.float32,
+                    device=x.device).index_add_(0, r.sel_tok, out)
+    if gathered:
+        # every gather's backward is collective: tie each gathered chunk
+        # into the output (with weight 0), so that a rank none of whose
+        # rows reached a chunk's experts still runs its reduce-scatter
+        y = y + 0.0 * sum(t.sum().float() for t in gathered)
+    return y
 
 
 def _fsdp_gather(run_cfg, w, mesh):
@@ -221,9 +236,11 @@ def _fsdp_gather(run_cfg, w, mesh):
     one = 3 * math.prod(full) * w["e_gate"].element_size()
 
     def gather(e0, e1):
-        return (S.all_gather(w["e_gate"][e0:e1], fa, 2, mesh),
-                S.all_gather(w["e_up"][e0:e1], fa, 2, mesh),
-                S.all_gather(w["e_down"][e0:e1], fa, 1, mesh))
+        # each data rank runs the experts on its own rows: the backward
+        # reduce-scatters the weights' gradients over the data axes
+        return (S.all_gather_rs(w["e_gate"][e0:e1], fa, 2, mesh),
+                S.all_gather_rs(w["e_up"][e0:e1], fa, 2, mesh),
+                S.all_gather_rs(w["e_down"][e0:e1], fa, 1, mesh))
 
     gather.chunk = max(1, EXPERT_GATHER_BYTES // one)
     return gather
@@ -243,11 +260,15 @@ def moe_ffn(cfg: ArchConfig, run_cfg, w, x: torch.Tensor,
             y = y + L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"])
         return y
     m = run_cfg.model_axis
+    # the tokens and the replicated router enter per-rank compute: their
+    # gradients are summed over the model axis in the backward
+    x = S.copy_to(x, m, mesh)
+    w = dict(w, router=S.copy_to(w["router"], m, mesh))
     y = _local_moe(cfg, run_cfg, w, x.reshape(B * S_, D),
                    n_shards=mesh.size(m), shard_id=mesh.index(m),
                    gather=_fsdp_gather(run_cfg, w, mesh))
     y = S.psum(y, m, mesh).reshape(B, S_, D).to(x.dtype)
     if cfg.moe.dense_residual_ff:
-        y = y + S.psum(L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"]), m,
-                       mesh)
+        y = y + L.swiglu(x, w["r_gate"], w["r_up"], w["r_down"],
+                         functools.partial(S.psum_matmul, axes=m, mesh=mesh))
     return y

@@ -23,11 +23,31 @@ What the reference spreads over ``jax.make_mesh``, ``use_mesh``,
   * ``mesh_axis_sizes``, ``filter_spec``, ``constrain`` — as the
     reference's, over the active mesh;
   * ``local_shape``, ``local_shard``, ``gather`` — a rank's slice of a
-    global tensor and the way back;
-  * ``psum``, ``pmax``, ``all_gather`` — over one mesh axis or a tuple of
-    axes. **Every collective of the port goes through these.** Axes that
-    are missing from the mesh or of size 1 are dropped, and with none left
-    the call is the identity (no communication).
+    global tensor and the way back; ``shard_param`` and ``keep_local`` — a
+    model's parameters on a mesh (allocated at their shard; the shard kept
+    of the single-device draw); ``local_zeros`` a zeroed cache at its shard;
+  * ``vocab_lookup``, ``vocab_logits`` — an embedding and a head split over
+    the vocabulary (a masked lookup and ``psum``; the local columns,
+    gathered), as every family with such specs computes them;
+  * ``psum``, ``copy_to``, ``all_gather``, ``all_gather_rs``, ``pmax`` —
+    over one mesh axis or a tuple of axes. **Every collective of the port
+    goes through these.** Axes that are missing from the mesh or of size 1
+    are dropped, and with none left the call is the identity (no
+    communication). The first four carry a gradient, and their names say
+    which backward a call site gets (Megatron's, written for GSPMD's
+    derivative of the global program):
+
+      - ``psum``: a row-parallel output used replicated; backward identity
+        (``psum_matmul`` is the row-parallel product and its ``psum``, the
+        partials in fp32);
+      - ``copy_to``: a replicated value entering per-rank compute (a
+        column-parallel input, or a replicated weight per-rank compute
+        reads); forward identity, backward ``psum``;
+      - ``all_gather``: a gather used replicated (the logits); backward
+        this rank's slice;
+      - ``all_gather_rs``: a gather each rank uses differently (Zamba2's
+        projection, FSDP experts); backward a reduce-scatter;
+      - ``pmax`` carries none (the distributed flash-decode serves only).
 
 A dimension that the spec's axes do not divide raises ``ValueError`` naming
 the leaf. That is what the reference does at the same place: ``jax.jit``
@@ -35,7 +55,7 @@ with an ``in_shardings`` of ``P("model")`` on a (6, 2) array over four
 devices raises ``ValueError`` ("... implies that the global size of its
 dimension 0 should be divisible by 4"), as does ``jax.device_put`` (checked
 with JAX 0.9 on four fake CPU devices). GSPMD pads only intermediate values
-it partitions itself; padding here waits for a later slice (ROADMAP A13c).
+it partitions itself; padding here waits for a later slice (ROADMAP A13d).
 
 The collectives run over whatever backend the default group has. On one
 H100 a mesh of N ranks is N processes on ``cuda:0``, where NCCL refuses two
@@ -261,6 +281,37 @@ def local_shard(full: torch.Tensor, spec: P, mesh: Optional[Mesh] = None,
     return full[local_slices(full.shape, spec, mesh, name)]
 
 
+def shard_param(shape: Sequence[int], dtype: torch.dtype, spec: P,
+                mesh: Optional[Mesh], name: str,
+                device) -> torch.nn.Parameter:
+    """An uninitialised parameter of global ``shape``: this rank's shard of
+    it on ``mesh`` (the whole with none), made without gradients (a
+    trainer turns them on)."""
+    if mesh is not None:
+        shape = local_shape(shape, spec, mesh, name)
+    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                              requires_grad=False)
+
+
+def keep_local(full: torch.Tensor, spec: P, mesh: Optional[Mesh],
+               name: str = "tensor") -> torch.Tensor:
+    """``full`` itself with no mesh, else this rank's shard of it (how a
+    model on a mesh keeps its slice of the single-device draw)."""
+    return full if mesh is None else local_shard(full, spec, mesh, name)
+
+
+def local_zeros(shapes: Dict[str, Tuple[tuple, torch.dtype]],
+                specs: Optional[Dict[str, P]], mesh: Optional[Mesh],
+                device) -> Dict[str, torch.Tensor]:
+    """Zeroed tensors at global ``shapes`` (name -> (dims, dtype)): this
+    rank's part of ``specs`` on a mesh, the whole with no mesh."""
+    if mesh is not None:
+        shapes = {k: (local_shape(d, specs[k], mesh, k), dt)
+                  for k, (d, dt) in shapes.items()}
+    return {k: torch.zeros(d, dtype=dt, device=device)
+            for k, (d, dt) in shapes.items()}
+
+
 def shard_state_dict(sd: Dict[str, torch.Tensor], pspecs: Dict[str, P],
                      mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """A full ``state_dict`` -> this rank's shards, by ``pspecs`` (what
@@ -278,42 +329,184 @@ def gather(local: torch.Tensor, spec: P,
 
 
 # -- collectives ------------------------------------------------------------------
+#
+# Each carries a gradient, and its backward depends on what its output
+# feeds (Megatron's f / g pair and its gathers). Where no gradient is
+# tracked (no grad mode, or an input that does not require grad) the call is
+# the plain collective and nothing else runs.
 
-def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Sum over the ranks of ``axes``, in fp32, returned in ``x``'s dtype."""
-    mesh = _mesh(mesh)
-    g = None if mesh is None else mesh.group(axes)
-    if g is None:
-        return x
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum(x: torch.Tensor, g) -> torch.Tensor:
     y = x.float() if x.dtype != torch.float32 else x.clone()
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
     return y.to(x.dtype)
 
 
-def pmax(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Elementwise maximum over the ranks of ``axes``."""
+def _gather(x: torch.Tensor, g, n: int, dim: int) -> torch.Tensor:
+    src = x.contiguous()
+    # a gather copies bytes: bf16 travels as fp16 words, which every gloo
+    # build takes (no arithmetic touches them on the way)
+    raw = src.view(torch.float16) if src.dtype == torch.bfloat16 else src
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=g)
+    out = torch.cat(parts, dim=dim)
+    return out.view(torch.bfloat16) if src.dtype == torch.bfloat16 else out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _sum(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, ctx.g), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n, i, dim, reduce_grad):
+        ctx.g, ctx.i, ctx.dim, ctx.size = g, i, dim, x.shape[dim]
+        ctx.reduce_grad = reduce_grad
+        return _gather(x, g, n, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.reduce_grad:
+            dy = _sum(dy, ctx.g)
+        return (dy.narrow(ctx.dim, ctx.i * ctx.size, ctx.size).contiguous(),
+                None, None, None, None, None)
+
+
+def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Sum over the ranks of ``axes``, in fp32, returned in ``x``'s dtype,
+    for a result used **replicated** (a row-parallel output feeding the
+    residual stream; Megatron's *g*): every rank then holds the whole
+    gradient of the sum, which is each addend's, so the backward is the
+    identity."""
     mesh = _mesh(mesh)
     g = None if mesh is None else mesh.group(axes)
     if g is None:
         return x
-    y = x.clone()
+    return _Psum.apply(x, g) if _tracked(x) else _sum(x, g)
+
+
+def psum_matmul(a: torch.Tensor, b: torch.Tensor, axes,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The row-parallel product ``a @ b`` (``b`` this rank's rows, ``a``
+    its columns) summed over ``axes`` (``psum``), in ``a``'s dtype. A
+    rank's partial is the GEMM's fp32 accumulator, taken before it is
+    rounded, so a bf16 result is rounded once, after the sum, as one device
+    rounds the whole product; rounding each partial first, as a bf16
+    product's reduction over shards does, puts 2^-9 of every partial into
+    the sum. On the card a 16-bit product stays a 16-bit GEMM with an fp32
+    output (``torch.mm(..., out_dtype=float32)``: no fp32 copy of the
+    weight); elsewhere, or where autograd records it, the operands widen
+    (exactly). The plain product when ``axes`` span one rank."""
+    mesh = _mesh(mesh)
+    if mesh is None or mesh.group(axes) is None:
+        return torch.matmul(a, b)
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) \
+            and b.dtype == a.dtype and b.dim() == 2 \
+            and not _tracked(a) and not _tracked(b):
+        part = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                        out_dtype=torch.float32)
+        part = part.reshape(*a.shape[:-1], b.shape[-1])
+    else:
+        part = torch.matmul(a.float(), b.float())
+    return psum(part, axes, mesh).to(a.dtype)
+
+
+def copy_to(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+            ) -> torch.Tensor:
+    """A replicated value entering per-rank compute (the input of a
+    column-parallel matmul, a replicated weight that per-rank compute
+    reads; Megatron's *f*): the identity forward, no communication; the
+    backward sums the ranks' partial gradients over ``axes``."""
+    mesh = _mesh(mesh)
+    g = None if mesh is None else mesh.group(axes)
+    if g is None or not _tracked(x):
+        return x
+    return _CopyTo.apply(x, g)
+
+
+def pmax(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Elementwise maximum over the ranks of ``axes``. Gradient-free: its
+    one user, the distributed flash-decode, serves only."""
+    mesh = _mesh(mesh)
+    g = None if mesh is None else mesh.group(axes)
+    if g is None:
+        return x
+    y = x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=g)
     return y
+
+
+def _all_gather(x, axes, dim, mesh, reduce_grad):
+    mesh = _mesh(mesh)
+    g = None if mesh is None else mesh.group(axes)
+    if g is None:
+        return x
+    n, dim = mesh.size(axes), dim % x.ndim
+    if _tracked(x):
+        return _AllGather.apply(x, g, n, mesh.index(axes), dim, reduce_grad)
+    return _gather(x, g, n, dim)
 
 
 def all_gather(x: torch.Tensor, axes, dim: int,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The ranks' ``x`` of ``axes`` concatenated along ``dim`` in their
-    row-major order over the axes (the reference's tiled ``all_gather``)."""
+    row-major order over the axes (the reference's tiled ``all_gather``),
+    for a result used **replicated** (the logits): every rank holds the
+    same whole gradient, so the backward is this rank's slice of it."""
+    return _all_gather(x, axes, dim, mesh, reduce_grad=False)
+
+
+def all_gather_rs(x: torch.Tensor, axes, dim: int,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``all_gather`` for a result that each rank uses **differently**
+    (Zamba2's projection, of which a rank keeps its own heads; FSDP
+    experts, each data rank on its own rows): the ranks' gradients of the
+    whole differ, so the backward is a reduce-scatter: their sum over
+    ``axes`` (in fp32), sliced to this rank's part."""
+    return _all_gather(x, axes, dim, mesh, reduce_grad=True)
+
+
+# -- the vocabulary split ------------------------------------------------------------
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, axes,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding ``table`` whose rows (the
+    vocabulary) are split over ``axes``: a masked local lookup, then
+    ``psum``, which hands each rank its rows' gradient. The plain lookup
+    when ``axes`` span one rank."""
     mesh = _mesh(mesh)
-    g = None if mesh is None else mesh.group(axes)
-    if g is None:
-        return x
-    src = x.contiguous()
-    # a gather copies bytes: bf16 travels as fp16 words, which every gloo
-    # build takes (no arithmetic touches them on the way)
-    raw = src.view(torch.float16) if src.dtype == torch.bfloat16 else src
-    parts = [torch.empty_like(raw) for _ in range(mesh.size(axes))]
-    dist.all_gather(parts, raw, group=g)
-    out = torch.cat(parts, dim=dim)
-    return out.view(torch.bfloat16) if src.dtype == torch.bfloat16 else out
+    if mesh is None or mesh.group(axes) is None:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    t = tokens.long() - mesh.index(axes) * rows
+    hit = (t >= 0) & (t < rows)
+    return psum(table[t.clamp(0, rows - 1)] * hit[..., None], axes, mesh)
+
+
+def vocab_logits(x: torch.Tensor, head: torch.Tensor, axes,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``x @ head`` for a replicated ``x`` and a ``head`` whose columns
+    (the vocabulary) are split over ``axes``: the local columns, gathered
+    (every rank returns the whole)."""
+    return all_gather(torch.matmul(copy_to(x, axes, mesh), head), axes, -1,
+                      mesh)

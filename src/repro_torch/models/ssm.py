@@ -20,9 +20,42 @@ reference does (it broadcasts a scalar and writes the KV caches with one
 ``dynamic_update_slice``): a ``(B,)`` length whose entries differ raises
 (ROADMAP §C), so this model serves through ``Replica.generate``, not
 through the continuous batcher.
+
+**On a mesh** (built inside ``sharding.use_mesh(mesh)``) every parameter
+is this rank's shard of ``param_pspecs()`` and, with a model axis of ``n``
+ranks, the blocks run the tensor-parallel arithmetic GSPMD derives from
+those specs, the collectives written out (each carries its gradient):
+
+  * the packed ``in_proj`` is split into ``n`` column blocks that do not
+    fall on its z / x / B / C / dt boundaries, and ``conv_w``/``conv_b``
+    into ``n`` channel blocks that do not fall on the x heads (at
+    zamba2-2.7b's width 2,612 of 10,448 columns and 1,312 of 5,248
+    channels a rank, against 1,280-channel x blocks). GSPMD reshards that
+    in the reference; here it is written out: the projection is gathered
+    along its columns (``all_gather_rs``), the rank convolves its conv
+    channels, the conv output is gathered along its channels, and the rank
+    keeps its SSD heads of z, x and dt and all of B and C;
+  * ``A_log``, ``D``, ``dt_bias`` and the rows of ``out_proj`` are split
+    by heads, aligned, so SSD (K4 in ``forward``, ``ssd_decode`` in
+    ``decode_step``) runs at the rank's ``H/n`` heads on its slice of the
+    ssd state, and ``out_proj`` is followed by ``psum``; the conv state
+    holds the rank's conv channels;
+  * the shared block: ``wq``/``wk``/``wv`` split by columns (the rank's
+    heads: K2 and K1 at ``H/n`` heads), ``wo`` and the MLP's ``w_down`` by
+    rows, each followed by ``psum``;
+  * the KV cache follows ``cache_pspecs``: for a batch above 1 it is
+    replicated over the model axis, so a step gathers the new K/V heads
+    before it writes them and attends at its heads (a contiguous copy of
+    them); for a batch of 1 on a mesh whose data axes have one rank it
+    holds the rank's heads. A batch of 1 with data ranks above one (the
+    reference's sequence-parallel ``long_500k`` cache) raises
+    ``ValueError`` (ROADMAP A13d);
+  * the embedding is split over the vocabulary (a masked local lookup,
+    then ``psum``) and ``lm_head`` by columns (the logits gathered).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,6 +67,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import ssd_decode
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.sharding import P
 
@@ -43,7 +77,8 @@ class Zamba2Model(nn.Module):
                  device: DeviceLike = None):
         """Parameters are allocated uninitialised on ``device`` (``None`` =
         the GPU; ``"meta"`` gives a storage-free skeleton); fill them with
-        ``init_params`` or ``load_state_dict``."""
+        ``init_params`` or ``load_state_dict``. Built inside
+        ``sharding.use_mesh(mesh)``, every parameter is this rank's shard."""
         super().__init__()
         s = cfg.ssm
         if s is None:
@@ -57,24 +92,30 @@ class Zamba2Model(nn.Module):
         self.n_ssm_heads = self.d_inner // s.head_dim
         self.n_super = cfg.n_layers // s.attn_every
         self.per_super = s.attn_every
+        self.mesh = S.get_mesh()
+        self.n_model = 1 if self.mesh is None \
+            else self.mesh.size(self.run.model_axis)
         dev = torch.device(device) if str(device) == "meta" \
             else resolve_device(device)
-        dt = torch_dtype(cfg.dtype)
+        self._full = self.param_shapes()
+        specs = self.param_pspecs()
 
-        def param(shape, dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+        def param(name):
+            return S.shard_param(*self._full[name], specs[name], self.mesh,
+                                 name, dev)
 
-        self.embed = param((cfg.vocab, cfg.d_model), dt)
-        self.final_norm = param((cfg.d_model,), torch.float32)
-        self.lm_head = param((cfg.d_model, cfg.vocab), dt)
-        lead = (self.n_super, self.per_super)
+        self.embed = param("embed")
+        self.final_norm = param("final_norm")
+        self.lm_head = param("lm_head")
         self.mamba = nn.ParameterDict({
-            k: param(lead + shape, dtype)
-            for k, (shape, dtype) in self._mamba_shapes().items()})
+            k: param(f"mamba.{k}") for k in self._mamba_shapes()})
         self.shared = nn.ParameterDict({
-            k: param(shape, dtype)
-            for k, (shape, dtype) in self._shared_shapes().items()})
+            k: param(f"shared.{k}") for k in self._shared_shapes()})
+        # this rank's SSD heads, conv channels and attention heads
+        self._i = 0 if self.mesh is None \
+            else self.mesh.index(self.run.model_axis)
+        self._hl = self.n_ssm_heads // self.n_model
+        self._chl = (self.d_inner + 2 * s.d_state) // self.n_model
 
     @property
     def device(self) -> torch.device:
@@ -112,10 +153,23 @@ class Zamba2Model(nn.Module):
             "w_down": ((f, d), dt),
         }
 
+    def param_shapes(self) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of every parameter, by ``state_dict``
+        name (the reference's ``param_specs``)."""
+        cfg = self.cfg
+        dt, lead = torch_dtype(cfg.dtype), (self.n_super, self.per_super)
+        out = {"embed": ((cfg.vocab, cfg.d_model), dt),
+               "final_norm": ((cfg.d_model,), torch.float32),
+               "lm_head": ((cfg.d_model, cfg.vocab), dt)}
+        out.update({f"mamba.{k}": (lead + shape, d)
+                    for k, (shape, d) in self._mamba_shapes().items()})
+        out.update({f"shared.{k}": v
+                    for k, v in self._shared_shapes().items()})
+        return out
+
     def param_pspecs(self) -> Dict[str, P]:
-        """The reference's ``param_pspecs``, keyed by ``state_dict`` name
-        (read by ZeRO-1 and elastic restore; the model computes on one
-        device, ROADMAP A13c)."""
+        """The reference's ``param_pspecs``, keyed by ``state_dict``
+        name."""
         m = self.run.model_axis
         mamba = {"ln": P(None, None, None),
                  "in_proj": P(None, None, None, m),
@@ -169,56 +223,74 @@ class Zamba2Model(nn.Module):
         near 17 and the residual stream near 1e7; ``layer_fan_in=True``
         draws them at 1/sqrt(their per-layer fan-in) instead (a deviation
         from the reference, for checks that need a well-conditioned model).
+        On a mesh every rank makes the single-device draw and keeps its
+        slice.
         """
+        specs = self.param_pspecs()
+
+        def keep(p, name, t):
+            p.copy_(S.keep_local(t, specs[name], self.mesh, name))
+
+        def draw(p, name, scale=None):
+            full = self._full[name][0]
+            keep(p, name, L.dense_init(generator, full, p.dtype, scale=scale,
+                                       device=p.device))
+
         for k, p in self.mamba.items():
+            full = self._full[f"mamba.{k}"][0]
             if k == "ln":
                 p.fill_(1.0)
             elif k == "A_log":
-                p.copy_(torch.log(torch.linspace(
-                    1.0, 8.0, p.shape[-1], dtype=torch.float32,
-                    device=p.device)).expand(p.shape))
+                keep(p, f"mamba.{k}", torch.log(torch.linspace(
+                    1.0, 8.0, full[-1], dtype=torch.float32,
+                    device=p.device)).expand(full))
             elif k in ("D", "dt_bias", "conv_b"):
                 p.zero_()
             elif k == "conv_w":
-                p.copy_(L.dense_init(generator, p.shape, p.dtype, scale=0.2,
-                                     device=p.device))
+                draw(p, f"mamba.{k}", 0.2)
             else:
-                scale = p.shape[-2] ** -0.5 if layer_fan_in else None
-                p.copy_(L.dense_init(generator, p.shape, p.dtype, scale=scale,
-                                     device=p.device))
+                draw(p, f"mamba.{k}",
+                     full[-2] ** -0.5 if layer_fan_in else None)
         for k, p in self.shared.items():
             if k.startswith("ln"):
                 p.fill_(1.0)
             else:
-                p.copy_(L.dense_init(generator, p.shape, p.dtype,
-                                     device=p.device))
-        self.embed.copy_(L.dense_init(generator, self.embed.shape,
-                                      self.embed.dtype, scale=0.02,
-                                      device=self.device))
+                draw(p, f"shared.{k}")
+        draw(self.embed, "embed", 0.02)
         self.final_norm.fill_(1.0)
-        self.lm_head.copy_(L.dense_init(generator, self.lm_head.shape,
-                                        self.lm_head.dtype,
-                                        device=self.device))
+        draw(self.lm_head, "lm_head")
         return self
 
-    def init_cache(self, shape: ShapeSpec,
-                   batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        s = cfg.ssm
+    def cache_shapes(self, shape: ShapeSpec, batch: Optional[int] = None
+                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of every cache tensor."""
+        cfg, s, f32 = self.cfg, self.cfg.ssm, torch.float32
         b, smax = batch or shape.global_batch, shape.seq_len
         ns, ps = self.n_super, self.per_super
         conv_ch = self.d_inner + 2 * s.d_state
-        f32 = dict(dtype=torch.float32, device=self.device)
-        kv = dict(dtype=torch_dtype(cfg.dtype), device=self.device)
-        kv_dims = (ns, b, smax, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {
-            "ssd": torch.zeros((ns, ps, b, self.n_ssm_heads, s.head_dim,
-                                s.d_state), **f32),
-            "conv": torch.zeros((ns, ps, b, s.conv_width - 1, conv_ch),
-                                **f32),
-            "k": torch.zeros(kv_dims, **kv),
-            "v": torch.zeros(kv_dims, **kv),
-        }
+        kv = ((ns, b, smax, cfg.n_kv_heads, cfg.resolved_head_dim),
+              torch_dtype(cfg.dtype))
+        return {"ssd": ((ns, ps, b, self.n_ssm_heads, s.head_dim, s.d_state),
+                        f32),
+                "conv": ((ns, ps, b, s.conv_width - 1, conv_ch), f32),
+                "k": kv, "v": kv}
+
+    def init_cache(self, shape: ShapeSpec,
+                   batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Zeroed caches; on a mesh this rank's part of ``cache_pspecs``
+        (``batch`` is then the global batch)."""
+        b, specs = batch or shape.global_batch, None
+        if self.mesh is not None:
+            if b == 1 and self.mesh.size(self.run.data_axes) > 1:
+                raise ValueError(
+                    f"{self.cfg.name}: a batch of 1 on data axes of "
+                    f"{self.mesh.size(self.run.data_axes)} ranks takes the "
+                    "reference's sequence-parallel KV cache, which is not "
+                    "ported (ROADMAP A13d)")
+            specs = self.cache_pspecs(ShapeSpec(shape.name, shape.seq_len, b,
+                                                "decode"))
+        return S.local_zeros(self.cache_shapes(shape, b), specs, self.mesh,
+                             self.device)
 
     # ------------------------------------------------------------------ mamba
     def _conv(self, w, xbc, conv_state):
@@ -236,22 +308,30 @@ class Zamba2Model(nn.Module):
         return F.silu(out), new_state
 
     def _mamba_block(self, w, x, state, decode: bool):
-        cfg, run = self.cfg, self.run
+        """On a mesh, ``h`` SSD heads and ``chl`` conv channels are this
+        rank's (the module docstring says how the packed projection is
+        resharded); on one device they are all."""
+        cfg, run, mesh, m = self.cfg, self.run, self.mesh, self.run.model_axis
         s = cfg.ssm
         b, sq, _ = x.shape
-        din, n, h, p = self.d_inner, s.d_state, self.n_ssm_heads, s.head_dim
+        din, n, p = self.d_inner, s.d_state, s.head_dim
+        h, chl, i = self._hl, self._chl, self._i
         ssd_state, conv_state = state
         hn = L.rms_norm(x, w["ln"])
-        proj = torch.matmul(hn.to(torch_dtype(cfg.dtype)),
-                            w["in_proj"]).float()
-        z = proj[..., :din]
-        xbc, conv_new = self._conv(w, proj[..., din:2 * din + 2 * n],
-                                   conv_state)
-        dt = F.softplus(proj[..., 2 * din + 2 * n:] + w["dt_bias"])  # (B,S,H)
+        # each rank keeps other columns of the gathered projection
+        proj = S.all_gather_rs(torch.matmul(S.copy_to(
+            hn.to(torch_dtype(cfg.dtype)), m, mesh), w["in_proj"]), m, -1,
+            mesh).float()
+        z = proj[..., i * h * p:(i + 1) * h * p]
+        conv, conv_new = self._conv(
+            w, proj[..., din + i * chl:din + (i + 1) * chl], conv_state)
+        xbc = S.all_gather_rs(conv, m, -1, mesh)
+        dt0 = 2 * din + 2 * n + i * h
+        dt = F.softplus(proj[..., dt0:dt0 + h] + w["dt_bias"])  # (B,S,H)
         a = -torch.exp(w["A_log"])
         # views, no copies: x is a slice of the conv output, B and C one
         # (B, S, N) slice each, broadcast over the heads
-        xh = xbc[..., :din].reshape(b, sq, h, p)
+        xh = xbc[..., i * h * p:(i + 1) * h * p].reshape(b, sq, h, p)
         bh = xbc[..., din:din + n][:, :, None, :].expand(b, sq, h, n)
         ch = xbc[..., din + n:][:, :, None, :].expand(b, sq, h, n)
         if decode:
@@ -259,8 +339,9 @@ class Zamba2Model(nn.Module):
         else:
             y, ssd_new = ops.ssd(xh, dt, a, bh, ch, w["D"], ssd_state,
                                  chunk=run.seq_chunk, impl=run.attn_impl)
-        y = y.reshape(b, sq, din) * F.silu(z)
-        out = torch.matmul(y.to(torch_dtype(cfg.dtype)), w["out_proj"])
+        y = y.reshape(b, sq, h * p) * F.silu(z)
+        out = S.psum_matmul(y.to(torch_dtype(cfg.dtype)), w["out_proj"], m,
+                            mesh)
         return x + out, (ssd_new, conv_new)
 
     # ------------------------------------------------------------------ shared attention
@@ -270,10 +351,12 @@ class Zamba2Model(nn.Module):
         K/V are written into it in place at position ``write_at`` and
         attention runs over ``attn_len`` positions."""
         cfg, run, w = self.cfg, self.run, self.shared
+        mesh, m = self.mesh, run.model_axis
         b, sq, _ = x.shape
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        hq, hkv = cfg.n_heads // self.n_model, cfg.n_kv_heads // self.n_model
+        hd = cfg.resolved_head_dim
         dt = torch_dtype(cfg.dtype)
-        h = L.rms_norm(x, w["ln1"]).to(dt)
+        h = S.copy_to(L.rms_norm(x, w["ln1"]).to(dt), m, mesh)
         q = L.rotate(torch.matmul(h, w["wq"]).reshape(b, sq, hq, hd), *rope)
         k = L.rotate(torch.matmul(h, w["wk"]).reshape(b, sq, hkv, hd), *rope)
         v = torch.matmul(h, w["wv"]).reshape(b, sq, hkv, hd)
@@ -282,15 +365,32 @@ class Zamba2Model(nn.Module):
                                     kv_chunk=run.kv_chunk, impl=run.attn_impl)
         else:
             ck, cv = cache_kv
-            ck.index_copy_(1, write_at, k)
-            cv.index_copy_(1, write_at, v)
+            if self.n_model > 1 and ck.shape[2] == cfg.n_kv_heads:
+                # a cache replicated over the model axis: every rank writes
+                # the gathered heads and attends at its own
+                kv = S.all_gather(torch.stack([k, v]), m, 3, mesh)
+                ck.index_copy_(1, write_at, kv[0])
+                cv.index_copy_(1, write_at, kv[1])
+                mine = slice(self._i * hkv, (self._i + 1) * hkv)
+                ck, cv = ck[:, :, mine].contiguous(), \
+                    cv[:, :, mine].contiguous()
+            else:
+                ck.index_copy_(1, write_at, k)
+                cv.index_copy_(1, write_at, v)
             o = ops.decode_attention(q, ck, cv, attn_len, impl=run.attn_impl)
-        x = x + torch.matmul(o.reshape(b, sq, hq * hd), w["wo"])
-        h = L.rms_norm(x, w["ln2"]).to(dt)
-        return x + L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+        x = x + S.psum_matmul(o.reshape(b, sq, hq * hd), w["wo"], m, mesh)
+        h = S.copy_to(L.rms_norm(x, w["ln2"]).to(dt), m, mesh)
+        return x + L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"],
+                            functools.partial(S.psum_matmul, axes=m,
+                                              mesh=mesh))
+
+    def _embed(self, tokens):
+        return S.vocab_lookup(self.embed, tokens, self.run.model_axis,
+                              self.mesh)
 
     def _logits(self, x):
-        return torch.matmul(L.rms_norm(x, self.final_norm), self.lm_head)
+        return S.vocab_logits(L.rms_norm(x, self.final_norm), self.lm_head,
+                              self.run.model_axis, self.mesh)
 
     # ------------------------------------------------------------------ steps
     def forward(self, batch) -> torch.Tensor:
@@ -299,15 +399,13 @@ class Zamba2Model(nn.Module):
         cfg, s = self.cfg, self.cfg.ssm
         tokens = batch["tokens"].to(self.device)
         b, sq = tokens.shape
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         pos = torch.arange(sq, dtype=torch.int32,
                            device=self.device)[None].expand(b, sq)
         rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
         z = dict(dtype=torch.float32, device=self.device)
-        state = (torch.zeros((b, self.n_ssm_heads, s.head_dim, s.d_state),
-                             **z),
-                 torch.zeros((b, s.conv_width - 1,
-                              self.d_inner + 2 * s.d_state), **z))
+        state = (torch.zeros((b, self._hl, s.head_dim, s.d_state), **z),
+                 torch.zeros((b, s.conv_width - 1, self._chl), **z))
         for i in range(self.n_super):
             for j in range(self.per_super):
                 w = {k: p[i, j] for k, p in self.mamba.items()}
@@ -330,7 +428,7 @@ class Zamba2Model(nn.Module):
             torch.as_tensor(batch["cache_len"], device=self.device),
             "Zamba2Model")
         b = tokens.shape[0]
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         pos = cache_len.to(torch.int32).reshape(1, 1).expand(b, 1)
         rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
         write_at, attn_len = cache_len.reshape(1), cache_len + 1

@@ -9,7 +9,7 @@ with PyTorch's idiom:
     ``final_norm``, ``layers.{ln1,ln2,wq,wk,wv,wo,...}``, optional
     ``lm_head``), so one converter serves every model;
   * a Python loop over ``L`` stands where the reference scans; there is no
-    remat, no sharding constraint and no PartitionSpec;
+    remat and no sharding constraint (the mesh below);
   * attention goes through ``repro_torch.kernels.ops``: with
     ``RunConfig.attn_impl == "kernel"`` a CUDA tensor reaches the
     hand-written flash-attention (``forward``) and flash-decode
@@ -62,18 +62,24 @@ arithmetic that GSPMD derives from those specs in the reference
     through the collective, where the sharded decode moves ``O(B · Hq ·
     D)`` per layer.
 
-Not on a mesh yet (ROADMAP A13c): the backward of these collectives
-(training runs with a model axis of 1), a KV-head-sharded cache (16 KV
-heads or more: no config has them), and a head count or vocabulary the
-model axis does not divide (``ValueError``; GSPMD would pad). With no mesh
-the code path is the single-device one.
+Training runs on the same arithmetic: every collective carries its
+gradient (``sharding``'s variants), ``copy_to`` stands at every input of a
+column-parallel matmul (``wq``, the MLP, the head) and on the replicated
+values per-rank compute reads (the K/V a rank picks its heads from,
+``q_norm``), so the gradient of a replicated leaf is the whole one on every
+rank and a sharded leaf's is its slice; the vocabulary-split lookup's
+``psum`` hands each rank its rows' gradient. Not on a mesh yet (ROADMAP
+A13d): a KV-head-sharded cache (16 KV heads or more: no config has them),
+and a head count or vocabulary the model axis does not divide
+(``ValueError``; GSPMD would pad). With no mesh the code path is the
+single-device one.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
@@ -116,11 +122,8 @@ class DecoderLM(nn.Module):
         specs = self.param_pspecs()
 
         def param(name):
-            shape, dt = self._full[name]
-            if self.mesh is not None:
-                shape = S.local_shape(shape, specs[name], self.mesh, name)
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev),
-                                requires_grad=False)
+            return S.shard_param(*self._full[name], specs[name], self.mesh,
+                                 name, dev)
 
         self.embed = param("embed")
         self.final_norm = param("final_norm")
@@ -269,21 +272,23 @@ class DecoderLM(nn.Module):
             fill(self.lm_head, "lm_head")
         return self
 
+    def cache_shapes(self, shape: ShapeSpec, batch: Optional[int] = None
+                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of the K and V caches."""
+        cfg = self.cfg
+        kv = ((cfg.n_layers, batch or shape.global_batch, shape.seq_len,
+               cfg.n_kv_heads, cfg.resolved_head_dim), torch_dtype(cfg.dtype))
+        return {"k": kv, "v": kv}
+
     def init_cache(self, shape: ShapeSpec,
                    batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Zeroed KV cache; on a mesh this rank's part of
         ``cache_pspecs`` (``batch`` is then the global batch)."""
-        cfg = self.cfg
         b = batch or shape.global_batch
-        dims = (cfg.n_layers, b, shape.seq_len, cfg.n_kv_heads,
-                cfg.resolved_head_dim)
-        if self.mesh is not None:
-            spec = self.cache_pspecs(ShapeSpec(shape.name, shape.seq_len, b,
-                                               "decode"))["k"]
-            dims = S.local_shape(dims, spec, self.mesh, "cache")
-        dt = torch_dtype(cfg.dtype)
-        return {"k": torch.zeros(dims, dtype=dt, device=self.device),
-                "v": torch.zeros(dims, dtype=dt, device=self.device)}
+        specs = None if self.mesh is None else self.cache_pspecs(
+            ShapeSpec(shape.name, shape.seq_len, b, "decode"))
+        return S.local_zeros(self.cache_shapes(shape, b), specs, self.mesh,
+                             self.device)
 
     # ------------------------------------------------------------------ blocks
     def _positions(self, tokens, offset=0) -> torch.Tensor:
@@ -338,14 +343,19 @@ class DecoderLM(nn.Module):
         return torch.matmul(o.reshape(b, s, hq * hd), w["wo"])
 
     def _mlp(self, w, x):
+        """The MoE, or the dense MLP split by columns and rows, then
+        ``psum`` on a mesh (with one rank of the model axis ``copy_to`` is
+        the identity and ``psum_matmul`` the plain product)."""
         h = self._norm(x, w["ln2"])
         if self.cfg.moe is not None:
             return moe_ffn(self.cfg, self.run, w, h, mesh=self.mesh)
-        if self.n_model > 1:
-            return self._mlp_tp(w, h)
+        m = self.run.model_axis
+        hm = S.copy_to(h, m, self.mesh)
+        down = functools.partial(S.psum_matmul, axes=m, mesh=self.mesh)
         if self.cfg.mlp == "swiglu":
-            return L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
-        return L.gelu_mlp(h, w["w_up"], w["b_up"], w["w_down"], w["b_down"])
+            return L.swiglu(hm, w["w_gate"], w["w_up"], w["w_down"], down)
+        return L.gelu_mlp(hm, w["w_up"], w["b_up"], w["w_down"], w["b_down"],
+                          down)
 
     def _stack(self, x, pos, cache=None, cache_len=None):
         # the rotary tables depend on the positions only: once per step, not
@@ -374,24 +384,13 @@ class DecoderLM(nn.Module):
         return x
 
     def _embed(self, tokens):
-        if self.n_model == 1:
-            return self.embed[tokens.long()]
-        # vocabulary-split table: a masked local lookup, then psum
-        m = self.run.model_axis
-        rows = self.embed.shape[0]
-        t = tokens.long() - self.mesh.index(m) * rows
-        hit = (t >= 0) & (t < rows)
-        x = self.embed[t.clamp(0, rows - 1)] * hit[..., None]
-        return S.psum(x, m, self.mesh)
+        return S.vocab_lookup(self.embed, tokens, self.run.model_axis,
+                              self.mesh)
 
     def _logits(self, x):
         x = self._norm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        if self.n_model == 1:
-            return torch.matmul(x, head)
-        # the local vocabulary columns, gathered
-        return S.all_gather(torch.matmul(x, head), self.run.model_axis, -1,
-                            self.mesh)
+        return S.vocab_logits(x, head, self.run.model_axis, self.mesh)
 
     # ------------------------------------------------------------- on a mesh
     def _local_heads(self):
@@ -423,14 +422,16 @@ class DecoderLM(nn.Module):
         hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         a, hl, kv = self._local_heads()
         h = self._norm(x, w["ln1"])
-        q = torch.matmul(h, w["wq"]).reshape(b, s, hl, hd)
+        q = torch.matmul(S.copy_to(h, m, mesh), w["wq"]).reshape(b, s, hl, hd)
         k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
         v = torch.matmul(h, w["wv"]).reshape(b, s, hkv, hd)
         if cfg.qk_norm:
-            q = L.rms_norm(q, w["q_norm"])
+            q = L.rms_norm(q, S.copy_to(w["q_norm"], m, mesh))
             k = L.rms_norm(k, w["k_norm"])
         q = L.rotate(q, *rope)
-        k = L.rotate(k, *rope)
+        # the replicated K/V, of which this rank reads its heads
+        k = S.copy_to(L.rotate(k, *rope), m, mesh)
+        v = S.copy_to(v, m, mesh)
         if cache_kv is None:
             o = ops.flash_attention(q, self._pick(k, kv), self._pick(v, kv),
                                     causal=True, q_chunk=run.q_chunk,
@@ -452,26 +453,13 @@ class DecoderLM(nn.Module):
                     q, self._pick(S.all_gather(ck, m, 1, mesh), kv),
                     self._pick(S.all_gather(cv, m, 1, mesh), kv), attn_len,
                     impl=run.attn_impl)
-        o = torch.matmul(o.reshape(b, s, hl * hd), w["wo"])
-        return S.psum(o, m, mesh)
+        return S.psum_matmul(o.reshape(b, s, hl * hd), w["wo"], m, mesh)
 
     def _use_sharded_decode(self) -> bool:
         """The explicit distributed flash-decode when the cache is
         sequence-sharded (few KV heads) over a model axis of several ranks."""
         return (self.run.sharded_decode and self.cfg.n_kv_heads < 16
                 and self.n_model > 1)
-
-    def _mlp_tp(self, w, h):
-        """The dense MLP split by columns and rows, then ``psum`` (the
-        replicated ``b_down`` is added once, after it)."""
-        m = self.run.model_axis
-        if self.cfg.mlp == "swiglu":
-            return S.psum(L.swiglu(h, w["w_gate"], w["w_up"], w["w_down"]),
-                          m, self.mesh)
-        u = torch.matmul(h, w["w_up"]) + w["b_up"]
-        out = torch.matmul(F.gelu(u, approximate="tanh").to(h.dtype),
-                           w["w_down"])
-        return (S.psum(out, m, self.mesh) + w["b_down"]).to(h.dtype)
 
     # ------------------------------------------------------------------ steps
     def forward(self, batch) -> torch.Tensor:

@@ -33,9 +33,23 @@ reference would promote an fp32 input to an fp32 residual stream).
 ``decode_step`` takes one ``cache_len`` for the batch, as the reference's
 ``dynamic_update_slice`` does: a (B,) length whose entries differ raises
 (ROADMAP §C2).
+
+**On a mesh** (built inside ``sharding.use_mesh(mesh)``) every parameter
+is this rank's shard of ``param_pspecs()`` and, with a model axis of ``n``
+ranks, the blocks run the tensor-parallel arithmetic GSPMD derives from
+those specs, the collectives written out (each carries its gradient):
+self and cross ``wq``/``wk``/``wv`` are split by columns, so K2 (causal,
+non-causal and cross) and K1 (the self cache, the ``encoder_seq``-long
+cross cache) run at the rank's ``H/n`` heads; ``wo`` and ``w_down`` are
+split by rows, then ``psum``; ``b_up`` is split with ``w_up``. The
+embedding and the logits stay replicated (the vocabulary, 51,865, is not
+divided by 4), and so are the caches (``cache_pspecs``): the new K/V heads
+are gathered before every write, in ``decode_step`` and in
+``prefill_cross``, and a rank attends at a contiguous copy of its heads.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,6 +59,7 @@ from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.sharding import P
 
@@ -56,7 +71,8 @@ class WhisperModel(nn.Module):
                  device: DeviceLike = None):
         """Parameters are allocated uninitialised on ``device`` (``None`` =
         the GPU; ``"meta"`` gives a storage-free skeleton); fill them with
-        ``init_params`` or ``load_state_dict``."""
+        ``init_params`` or ``load_state_dict``. Built inside
+        ``sharding.use_mesh(mesh)``, every parameter is this rank's shard."""
         super().__init__()
         if cfg.enc_dec is None:
             raise ValueError(f"{cfg.name}: no EncDecConfig")
@@ -64,29 +80,29 @@ class WhisperModel(nn.Module):
         self.run = run_cfg or RunConfig()
         self.enc_layers = cfg.enc_dec.n_encoder_layers
         self.enc_seq = cfg.enc_dec.encoder_seq
+        self.mesh = S.get_mesh()
+        self.n_model = 1 if self.mesh is None \
+            else self.mesh.size(self.run.model_axis)
         dev = torch.device(device) if str(device) == "meta" \
             else resolve_device(device)
-        dt, f32, d = torch_dtype(cfg.dtype), torch.float32, cfg.d_model
+        self._full = self.param_shapes()
+        specs = self.param_pspecs()
 
-        def param(shape, dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
+        def param(name):
+            return S.shard_param(*self._full[name], specs[name], self.mesh,
+                                 name, dev)
 
-        self.embed = param((cfg.vocab, d), dt)
-        self.dec_pos = param((MAX_DEC_POS, d), dt)
-        self.enc_final_ln, self.enc_final_lnb = param((d,), f32), \
-            param((d,), f32)
-        self.dec_final_ln, self.dec_final_lnb = param((d,), f32), \
-            param((d,), f32)
-        enc = {**self._attn_shapes("s_"), **self._mlp_shapes()}
-        dec = {**self._attn_shapes("s_"), **self._attn_shapes("x_"),
-               **self._mlp_shapes()}
+        for name in ("embed", "dec_pos", "enc_final_ln", "enc_final_lnb",
+                     "dec_final_ln", "dec_final_lnb"):
+            setattr(self, name, param(name))
         self.encoder = nn.ParameterDict({
-            k: param((self.enc_layers,) + shape, dtype)
-            for k, (shape, dtype) in enc.items()})
+            k: param(f"encoder.{k}") for k in self._enc_shapes()})
         self.decoder = nn.ParameterDict({
-            k: param((cfg.n_layers,) + shape, dtype)
-            for k, (shape, dtype) in dec.items()})
+            k: param(f"decoder.{k}") for k in self._dec_shapes()})
+        # this rank's heads
+        hl = cfg.n_heads // self.n_model
+        i = 0 if self.mesh is None else self.mesh.index(self.run.model_axis)
+        self._mine = slice(i * hl, (i + 1) * hl)
 
     @property
     def device(self) -> torch.device:
@@ -110,10 +126,30 @@ class WhisperModel(nn.Module):
                 "w_up": ((d, f), dt), "b_up": ((f,), f32),
                 "w_down": ((f, d), dt), "b_down": ((d,), f32)}
 
+    def _enc_shapes(self):
+        return {**self._attn_shapes("s_"), **self._mlp_shapes()}
+
+    def _dec_shapes(self):
+        return {**self._attn_shapes("s_"), **self._attn_shapes("x_"),
+                **self._mlp_shapes()}
+
+    def param_shapes(self) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of every parameter, by ``state_dict``
+        name (the reference's ``param_specs``)."""
+        cfg = self.cfg
+        dt, f32, d = torch_dtype(cfg.dtype), torch.float32, cfg.d_model
+        out = {"embed": ((cfg.vocab, d), dt), "dec_pos": ((MAX_DEC_POS, d), dt),
+               "enc_final_ln": ((d,), f32), "enc_final_lnb": ((d,), f32),
+               "dec_final_ln": ((d,), f32), "dec_final_lnb": ((d,), f32)}
+        out.update({f"encoder.{k}": ((self.enc_layers,) + shape, dtype)
+                    for k, (shape, dtype) in self._enc_shapes().items()})
+        out.update({f"decoder.{k}": ((cfg.n_layers,) + shape, dtype)
+                    for k, (shape, dtype) in self._dec_shapes().items()})
+        return out
+
     def param_pspecs(self) -> Dict[str, P]:
-        """The reference's ``param_pspecs``, keyed by ``state_dict`` name
-        (read by ZeRO-1 and elastic restore; the model computes on one
-        device, ROADMAP A13c)."""
+        """The reference's ``param_pspecs``, keyed by ``state_dict``
+        name."""
         m = self.run.model_axis
 
         def spec(k, shape):
@@ -125,9 +161,7 @@ class WhisperModel(nn.Module):
                 return P(None, m, None)
             return P(None, None, None)
 
-        enc = {**self._attn_shapes("s_"), **self._mlp_shapes()}
-        dec = {**self._attn_shapes("s_"), **self._attn_shapes("x_"),
-               **self._mlp_shapes()}
+        enc, dec = self._enc_shapes(), self._dec_shapes()
         # vocab 51865 is not divisible by the model axis: replicate the
         # (tiny) embedding; logits stay replicated over `model`
         out = {"embed": P(None, None), "dec_pos": P(None, None),
@@ -165,38 +199,81 @@ class WhisperModel(nn.Module):
         arithmetic break differently (ROADMAP §C9). ``layer_fan_in=True``
         draws the matrices at 1/sqrt(their per-layer fan-in) instead (a
         deviation from the reference, for checks that need a
-        well-conditioned model), as ``Zamba2Model.init_params`` does."""
+        well-conditioned model), as ``Zamba2Model.init_params`` does. On a
+        mesh every rank makes the single-device draw and keeps its
+        slice."""
+        specs = self.param_pspecs()
         for name, p in self.named_parameters():
             leaf = name.split(".")[-1]
+            full = self._full[name][0]
             if "ln" in leaf and not leaf.endswith("b"):
                 p.fill_(1.0)
             elif leaf.endswith(("lnb", "b_up", "b_down")):
                 p.zero_()
             else:
                 scale = 0.02 if leaf in ("embed", "dec_pos") else (
-                    p.shape[-2] ** -0.5 if layer_fan_in else None)
-                p.copy_(L.dense_init(generator, p.shape, p.dtype, scale=scale,
-                                     device=p.device))
+                    full[-2] ** -0.5 if layer_fan_in else None)
+                t = L.dense_init(generator, full, p.dtype, scale=scale,
+                                 device=p.device)
+                p.copy_(S.keep_local(t, specs[name], self.mesh, name))
         return self
+
+    def cache_shapes(self, shape: ShapeSpec, batch: Optional[int] = None
+                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """Global shape and dtype of the self-attention KV cache (L, B,
+        seq_len, H, D) and the cross K/V (L, B, encoder_seq, H, D)."""
+        cfg = self.cfg
+        b, dt = batch or shape.global_batch, torch_dtype(cfg.dtype)
+        hq, hd, n = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+        self_kv = ((n, b, shape.seq_len, hq, hd), dt)
+        cross = ((n, b, self.enc_seq, hq, hd), dt)
+        return {"k": self_kv, "v": self_kv, "xk": cross, "xv": cross}
 
     def init_cache(self, shape: ShapeSpec,
                    batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Zeroed self-attention KV cache (L, B, seq_len, H, D) and cross
-        K/V (L, B, encoder_seq, H, D); ``prefill_cross`` fills the latter."""
-        cfg = self.cfg
+        """Zeroed caches (``prefill_cross`` fills the cross K/V). On a mesh
+        this rank's part of ``cache_pspecs`` (``batch`` is then the global
+        batch)."""
         b = batch or shape.global_batch
-        hq, hd, n = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
-        z = dict(dtype=torch_dtype(cfg.dtype), device=self.device)
-        return {"k": torch.zeros((n, b, shape.seq_len, hq, hd), **z),
-                "v": torch.zeros((n, b, shape.seq_len, hq, hd), **z),
-                "xk": torch.zeros((n, b, self.enc_seq, hq, hd), **z),
-                "xv": torch.zeros((n, b, self.enc_seq, hq, hd), **z)}
+        specs = None if self.mesh is None else self.cache_pspecs(
+            ShapeSpec(shape.name, shape.seq_len, b, "decode"))
+        return S.local_zeros(self.cache_shapes(shape, b), specs, self.mesh,
+                             self.device)
 
     # ------------------------------------------------------------------ blocks
     def _heads(self, t):
-        cfg = self.cfg
-        return t.reshape(t.shape[0], t.shape[1], cfg.n_heads,
-                         cfg.resolved_head_dim)
+        """(B, S, H·D) -> (B, S, H, D): this rank's heads on a mesh."""
+        return t.reshape(t.shape[0], t.shape[1], -1,
+                         self.cfg.resolved_head_dim)
+
+    def _in(self, x):
+        """A replicated activation entering this rank's columns."""
+        return S.copy_to(x, self.run.model_axis, self.mesh)
+
+    def _out(self, o, wo):
+        """The row-parallel output projection, summed over the ranks."""
+        return S.psum_matmul(o.reshape(o.shape[0], o.shape[1], -1), wo,
+                             self.run.model_axis, self.mesh)
+
+    def _own(self, ck, cv, k, v, write_at=None):
+        """Write this step's K/V heads into the replicated cache ``(ck,
+        cv)`` (gathered over the model axis first; at ``write_at``, or the
+        whole of it) and return the K/V this rank attends at: its heads, a
+        contiguous copy on a mesh."""
+        if self.n_model > 1:
+            kv = S.all_gather(torch.stack([k, v]), self.run.model_axis, 3,
+                              self.mesh)
+            k, v = kv[0], kv[1]
+        if write_at is None:
+            ck.copy_(k)
+            cv.copy_(v)
+        else:
+            ck.index_copy_(1, write_at, k)
+            cv.index_copy_(1, write_at, v)
+        if self.n_model == 1:
+            return ck, cv
+        return (ck[:, :, self._mine].contiguous(),
+                cv[:, :, self._mine].contiguous())
 
     def _self_attn(self, w, x, causal, cache_kv=None, write_at=None,
                    attn_len=None):
@@ -204,8 +281,8 @@ class WhisperModel(nn.Module):
         position ``write_at`` and attention runs over ``attn_len``
         positions."""
         run = self.run
-        b, s, _ = x.shape
-        h = L.layer_norm(x, w["s_ln"], w["s_lnb"]).to(torch_dtype(self.cfg.dtype))
+        h = self._in(L.layer_norm(x, w["s_ln"], w["s_lnb"]).to(
+            torch_dtype(self.cfg.dtype)))
         q = self._heads(torch.matmul(h, w["s_wq"]))
         k = self._heads(torch.matmul(h, w["s_wk"]))
         v = self._heads(torch.matmul(h, w["s_wv"]))
@@ -213,33 +290,36 @@ class WhisperModel(nn.Module):
             o = ops.flash_attention(q, k, v, causal=causal, q_chunk=run.q_chunk,
                                     kv_chunk=run.kv_chunk, impl=run.attn_impl)
         else:
-            ck, cv = cache_kv
-            ck.index_copy_(1, write_at, k)
-            cv.index_copy_(1, write_at, v)
+            ck, cv = self._own(*cache_kv, k, v, write_at)
             o = ops.decode_attention(q, ck, cv, attn_len, impl=run.attn_impl)
-        return x + torch.matmul(o.reshape(b, s, -1), w["s_wo"])
+        return x + self._out(o, w["s_wo"])
 
     def _cross_q(self, w, x):
         h = L.layer_norm(x, w["x_ln"], w["x_lnb"]).to(torch_dtype(self.cfg.dtype))
-        return self._heads(torch.matmul(h, w["x_wq"]))
+        return self._heads(torch.matmul(self._in(h), w["x_wq"]))
 
     def _cross_attn(self, w, x, enc_kv):
         run = self.run
-        b, s, _ = x.shape
         ek, ev = enc_kv
         o = ops.flash_attention(self._cross_q(w, x), ek, ev, causal=False,
                                 q_chunk=run.q_chunk, kv_chunk=run.kv_chunk,
                                 impl=run.attn_impl)
-        return x + torch.matmul(o.reshape(b, s, -1), w["x_wo"])
+        return x + self._out(o, w["x_wo"])
 
     def _enc_kv(self, w, enc_out):
+        enc_out = self._in(enc_out)
         return (self._heads(torch.matmul(enc_out, w["x_wk"])),
                 self._heads(torch.matmul(enc_out, w["x_wv"])))
 
     def _mlp(self, w, x):
+        """``gelu_mlp`` with ``w_up``/``b_up`` split by columns and
+        ``w_down`` by rows: the replicated ``b_down`` is added once, after
+        the ``psum``."""
         h = L.layer_norm(x, w["mln"], w["mlnb"]).to(torch_dtype(self.cfg.dtype))
-        return x + L.gelu_mlp(h, w["w_up"], w["b_up"], w["w_down"],
-                              w["b_down"])
+        down = functools.partial(S.psum_matmul, axes=self.run.model_axis,
+                                 mesh=self.mesh)
+        return x + L.gelu_mlp(self._in(h), w["w_up"], w["b_up"],
+                              w["w_down"], w["b_down"], down)
 
     def _sinusoid(self, s, d):
         pos = torch.arange(s, dtype=torch.float32, device=self.device)[:, None]
@@ -293,9 +373,7 @@ class WhisperModel(nn.Module):
         enc_out = self.encode(frames)
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.decoder.items()}
-            ek, ev = self._enc_kv(w, enc_out)
-            cache["xk"][i].copy_(ek)
-            cache["xv"][i].copy_(ev)
+            self._own(cache["xk"][i], cache["xv"][i], *self._enc_kv(w, enc_out))
         return cache
 
     def decode_step(self, cache, batch):
@@ -318,9 +396,12 @@ class WhisperModel(nn.Module):
             x = self._self_attn(w, x, causal=True,
                                 cache_kv=(cache["k"][i], cache["v"][i]),
                                 write_at=write_at, attn_len=attn_len)
-            o = ops.decode_attention(self._cross_q(w, x), cache["xk"][i],
-                                     cache["xv"][i], cross_len,
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            if self.n_model > 1:
+                xk, xv = xk[:, :, self._mine].contiguous(), \
+                    xv[:, :, self._mine].contiguous()
+            o = ops.decode_attention(self._cross_q(w, x), xk, xv, cross_len,
                                      impl=self.run.attn_impl)
-            x = x + torch.matmul(o.reshape(b, 1, -1), w["x_wo"])
+            x = x + self._out(o, w["x_wo"])
             x = self._mlp(w, x)
         return self._logits(x)[:, -1], cache

@@ -11,16 +11,21 @@ the model's plain forms: the model must run with
 ``RunConfig(attn_impl="plain")``, since a kernel refuses an input that
 requires grad.
 
-The step is data-parallel over the mesh (``make_train_step(..., mesh=)``,
-default the active one; with none it is one device, where every data axis
-has one rank): it takes the global batch, keeps this rank's rows of
+The step runs over the mesh (``make_train_step(..., mesh=)``, default the
+active one; with none it is one device, where every axis has one rank):
+it takes the global batch, keeps this rank's rows of
 ``model.input_pspecs`` (the data axes), computes the local loss and
 gradients (microbatches averaged first under ``grad_accum``), and averages
 both over the data axes (``psum / n_data``) before the codec and the
 update; with ``RunConfig.use_zero1`` the update is ZeRO-1
 (``optimizer.adamw_update``). On one rank each of these is the identity.
-The model axis must have one rank: the backward of the tensor- and
-expert-parallel collectives is not ported (ROADMAP A13c).
+On a model axis above one rank the model computes tensor- and
+expert-parallel, and its collectives carry their gradients
+(``models/sharding.py``): a model-sharded leaf's gradient is this rank's
+slice, as its ``param_pspecs`` say, and a replicated leaf's the whole on
+every model rank. A leaf sharded over data axes too (FSDP experts) had its
+gradient summed over them by the gather's reduce-scatter: it is only
+divided.
 """
 from __future__ import annotations
 
@@ -83,11 +88,13 @@ def optimizer_pspecs(model) -> AdamWState:
                         use_zero1=run.use_zero1, dax=run.data_axes)
 
 
-def local_batch(model, batch, mesh) -> dict:
-    """This rank's rows of a global training batch (``input_pspecs``)."""
+def local_batch(model, batch, mesh, kind: str = "train") -> dict:
+    """This rank's rows of a global batch of ``kind`` (``input_pspecs``;
+    ``"prefill"`` and ``"decode"`` serve ``launch/steps.py``)."""
     b, s = batch["tokens"].shape
-    specs = model.input_pspecs(ShapeSpec("train", s, b, "train"))
-    return {k: S.local_shard(v, specs[k], mesh, k) for k, v in batch.items()}
+    specs = model.input_pspecs(ShapeSpec(kind, s, b, kind))
+    return {k: S.local_shard(torch.as_tensor(v), specs[k], mesh, k)
+            for k, v in batch.items()}
 
 
 def make_train_step(model, lr: float = 3e-4, weight_decay: float = 0.1,
@@ -96,29 +103,33 @@ def make_train_step(model, lr: float = 3e-4, weight_decay: float = 0.1,
     metrics)``. Honors ``RunConfig.grad_accum`` (``loss_and_grads``) and
     ``RunConfig.grad_compress`` (the gradients through the int8 codec, its
     noise from ``generator``). ``metrics`` holds 0-d tensors: ``loss``,
-    ``grad_norm``, ``step``. The step is data-parallel over ``mesh`` (and
-    ZeRO-1 under ``use_zero1``): ``opt_state`` must be laid out by
+    ``grad_norm``, ``step``. The step runs over ``mesh`` (and ZeRO-1 under
+    ``use_zero1``): the model must have been built on it, and
+    ``opt_state`` must be laid out by
     ``optimizer_pspecs`` (``adamw_init(..., mu_pspecs=...)``; on one rank
     that is ``adamw_init(params)``'s layout)."""
     run = model.run
     params = trainable(model)
     mesh = mesh if mesh is not None else S.get_mesh()
-    if mesh is not None and mesh.size(run.model_axis) > 1:
-        raise NotImplementedError(
-            "training on a model axis of more than one rank: the backward "
-            "of the tensor- and expert-parallel collectives is ROADMAP A13c")
     dax = run.data_axes
     n_data = 1 if mesh is None else mesh.size(dax)
     pspecs = model.param_pspecs()
     mu_pspecs = optimizer_pspecs(model).mu
+    live = () if mesh is None else mesh.live_axes(dax)
+    # the data axes a leaf's gradient still has to be summed over: all but
+    # those its spec shards it on (summed by the backward already)
+    sum_over = {k: tuple(a for a in live if a not in
+                         {x for e in spec for x in S.entry_axes(e)})
+                for k, spec in pspecs.items()}
 
-    def mean(t):
-        return S.psum(t, dax, mesh) / n_data if n_data > 1 else t
+    def mean(t, axes=dax):
+        return S.psum(t, axes, mesh) / n_data if n_data > 1 else t
 
     def train_step(opt_state: AdamWState, batch, generator):
         loss, grads = loss_and_grads(model, local_batch(model, batch, mesh),
                                      run.grad_accum)
-        grads = {k: mean(g) for k, g in grads.items()}
+        for k in grads:      # one leaf at a time: the old one is freed
+            grads[k] = mean(grads[k], sum_over[k])
         if run.grad_compress:
             grads = roundtrip_tree(grads, generator)
         _, opt_state, gnorm = adamw_update(

@@ -28,7 +28,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.api import RunConfig, build_model  # noqa: E402
 from torch_port_util import (MESH_SMAX, MESH_START,  # noqa: E402
-                             MESH_STEPS, MESH_T, finish,
+                             MESH_STEPS, MESH_T, fake_mesh, finish,
                              mesh_inputs, port_mesh_job, spawn_gloo,
                              start_jax_mesh)
 
@@ -188,16 +188,10 @@ def test_fsdp_experts_match_jax(runs):
 
 def test_mesh_model_refuses_what_is_not_ported():
     """smollm's 15 heads do not split over 4 ranks (GSPMD would pad:
-    ROADMAP A13c)."""
-    from repro_torch.models.sharding import Mesh, use_mesh
-
-    class FakeMesh(Mesh):
-        def __init__(self):
-            self.axis_names, self.axis_sizes = ("data", "model"), (1, 4)
-            self.coord = {"data": 0, "model": 0}
-            self.device_type = "cpu"
+    ROADMAP A13d)."""
+    from repro_torch.models.sharding import use_mesh
 
     cfg = get_config("smollm-360m")
-    with use_mesh(FakeMesh()), pytest.raises(ValueError,
+    with use_mesh(fake_mesh((1, 4), (0, 0))), pytest.raises(ValueError,
                                              match="15 query heads"):
         build_model(cfg, RunConfig(), device="meta")

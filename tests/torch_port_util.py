@@ -166,6 +166,18 @@ def finish(proc, timeout=300):
     return out
 
 
+def fake_mesh(shape, coord, names=("data", "model")):
+    """A ``sharding.Mesh`` with a shape and this rank's coordinate but no
+    process group: enough to build a model's shards (on the meta device)
+    and to read ``size``/``index``."""
+    from repro_torch.models.sharding import Mesh
+    mesh = Mesh.__new__(Mesh)
+    mesh.axis_names, mesh.axis_sizes = tuple(names), tuple(shape)
+    mesh.coord = dict(zip(names, coord))
+    mesh.device_type = "cpu"
+    return mesh
+
+
 def local_rows(a, mesh, spec):
     """The rank's part of a numpy/torch array laid out by ``spec``."""
     from repro_torch.models import sharding as S
@@ -573,3 +585,301 @@ def port_zero1_job(rank, world, out, phase):
     np.savez(f"{out}.{phase}.{rank}.npz",
              **{k: torch.as_tensor(v).detach().float().numpy()
                 for k, v in res.items()})
+
+
+# the other families on a mesh, and training on a model axis above one
+# (tests/test_torch_mesh_train.py, tests/test_torch_mesh_families.py) --------
+
+# reduced configs (ArchConfig.reduced(): 4 heads, vocabulary 512, zamba2's
+# 8 SSD heads with a 296-column in_proj, 74 a rank): dense with qk_norm and
+# one KV head read by every rank, dense with a tied head, MoE (EP), RWKV6,
+# Zamba2, Whisper
+MF_NAMES = ("qwen3-32b", "smollm-360m", "arctic-480b", "rwkv6-7b",
+            "zamba2-2.7b", "whisper-small")
+MF_B, MF_S = 2, 16                  # batch, length (seq_chunk 8)
+MF_SMAX, MF_STEPS = 8, 4           # decode cache length, steps from 0
+MF_LR = 3e-4
+
+
+def mf_run(**kw):
+    """Both packages' RunConfig fields of the mesh-family cases."""
+    return dict(q_chunk=8, kv_chunk=8, seq_chunk=8, data_axes=("data",),
+                **kw)
+
+
+def mf_inputs(path):
+    """Every family's reduced weights (the port's init, per-layer fan-in
+    where the model has it; the router at scale 0.5, clear of top-k ties)
+    and inputs, drawn from seeds, saved as one .npz both sides read."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import RunConfig, build_model
+    out = {}
+    for i, name in enumerate(MF_NAMES):
+        cfg = get_config(name).reduced()
+        m = build_model(cfg, RunConfig(), device="cpu")
+        g = torch.Generator().manual_seed(100 + i)
+        if cfg.family == "ssm":
+            m.init_params(g)
+        else:
+            m.init_params(g, layer_fan_in=True)
+        for k, v in m.state_dict().items():
+            out[f"{name}|{k}"] = v.numpy() * (25.0 if k.endswith("router")
+                                              else 1.0)
+    rng = np.random.default_rng(7)
+    out["tokens"] = rng.integers(0, 512, (MF_B, MF_S))
+    out["labels"] = rng.integers(0, 512, (MF_B, MF_S))
+    wcfg = get_config("whisper-small").reduced()
+    out["frames"] = rng.standard_normal(
+        (MF_B, wcfg.enc_dec.encoder_seq, wcfg.d_model))
+    np.savez(path, **{k: np.asarray(v, np.float32 if v.dtype.kind == "f"
+                                     else np.int32) for k, v in out.items()})
+
+
+def mf_tree(z, name):
+    """A family's weights from the .npz, as the reference's nested tree of
+    numpy arrays."""
+    from repro_torch.convert import unflatten_tree
+    return unflatten_tree({k.split("|", 1)[1]: z[k] for k in z.files
+                           if k.startswith(name + "|")})
+
+
+def mf_batch(z, name, kind="train"):
+    b = {"tokens": z["tokens"]}
+    if kind == "train":
+        b["labels"] = z["labels"]
+    if name == "whisper-small":
+        b["frames"] = z["frames"]
+    return b
+
+
+# (mesh shape, run overrides) of the AdamW steps, per family
+MF_STEP_CASES = {
+    "qwen3-32b": (((1, 4), {}), ((2, 2), {"use_zero1": True})),
+    "arctic-480b": (((2, 2), {"use_zero1": True, "fsdp_experts": True}),),
+    "rwkv6-7b": (((2, 2), {"use_zero1": True}),),
+    "zamba2-2.7b": (((2, 2), {"use_zero1": True}),),
+    "whisper-small": (((2, 2), {"use_zero1": True}),),
+}
+
+
+def jax_mesh_train_main(inputs, out):
+    """The reference's side of tests/test_torch_mesh_train.py on 4 fake
+    devices: loss and gradients on (1, 4) (``jax.value_and_grad`` of
+    ``loss_fn``, jitted with the shardings of its specs) and one step of
+    ``launch.steps.build_step(..., "train_4k", ...)`` per MF_STEP_CASES."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import SHAPES, get_config
+    from repro.launch.steps import _shard, build_step
+    from repro.models.api import RunConfig, build_model
+    from repro.models.sharding import compat_make_mesh, use_mesh
+    from repro.train.optimizer import adamw_init
+    from repro_torch.convert import flatten_tree
+    z = np.load(inputs)
+    res = {}
+    shape = SHAPES["train_4k"]
+    for name in MF_NAMES:
+        cfg = get_config(name).reduced()
+        batch = {k: jnp.asarray(v) for k, v in mf_batch(z, name).items()}
+        mesh = compat_make_mesh((1, 4), ("data", "model"))
+        with use_mesh(mesh):
+            m = build_model(cfg, RunConfig(**mf_run()))
+            f = jax.jit(jax.value_and_grad(m.loss_fn), in_shardings=(
+                _shard(mesh, m.param_pspecs()),
+                _shard(mesh, m.input_pspecs(shape))))
+            loss, grads = f(jax.tree.map(jnp.asarray, mf_tree(z, name)),
+                            batch)
+        res[f"{name}|loss"] = loss
+        res.update({f"{name}|g|{k}": v
+                    for k, v in flatten_tree(grads).items()})
+        for mshape, over in MF_STEP_CASES.get(name, ()):
+            key = f"{name}|{mshape[0]}x{mshape[1]}"
+            mesh = compat_make_mesh(mshape, ("data", "model"))
+            fn, _, _ = build_step(name, "train_4k", mesh,
+                                  run_cfg=RunConfig(**mf_run(**over)),
+                                  lr=MF_LR, cfg_override=cfg)
+            params = jax.tree.map(jnp.asarray, mf_tree(z, name))
+            opt, rng = adamw_init(params), jax.random.PRNGKey(0)
+            # traced inside the mesh, as the gradients above: the MoE runs
+            # its shard_map (expert-parallel routing and capacity)
+            with use_mesh(mesh):
+                params, _, metrics = fn(params, opt, batch, rng)
+            res[f"{key}|loss"] = metrics["loss"]
+            res[f"{key}|gnorm"] = metrics["grad_norm"]
+            res.update({f"{key}|p|{k}": v
+                        for k, v in flatten_tree(params).items()})
+    np.savez(out, **{k: np.asarray(v, np.float32) for k, v in res.items()})
+    print("jax mesh train ok")
+
+
+def port_mesh_train_job(rank, world, inputs, out, ckpt):
+    """The port's side of tests/test_torch_mesh_train.py, one rank of 4
+    gloo CPU ranks: loss and gradients on (1, 4) through
+    ``launch.steps.build_step``'s model (every rank saves them gathered),
+    the AdamW steps of MF_STEP_CASES, and a checkpoint of the (1, 4) dense
+    step for the one-device restore."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig
+    from repro_torch.train.checkpoint import named_shardings, save_checkpoint
+    from repro_torch.train.train_step import loss_and_grads, optimizer_pspecs
+    torch.set_num_threads(1)
+    z = np.load(inputs)
+    res = {}
+    for name in MF_NAMES:
+        cfg = get_config(name).reduced()
+        batch = {k: torch.from_numpy(v)
+                 for k, v in mf_batch(z, name).items()}
+        cases = ((((1, 4), {}), False),) + tuple(
+            (c, True) for c in MF_STEP_CASES.get(name, ()))
+        for (mshape, over), step in cases:
+            mesh = S.make_mesh(mshape, ("data", "model"), "cpu")
+            key = f"{name}|{mshape[0]}x{mshape[1]}"
+            fn, _, meta = build_step(
+                name, "train_4k", mesh, lr=MF_LR, cfg_override=cfg,
+                run_cfg=RunConfig(attn_impl="plain", **mf_run(**over)))
+            model = meta["model"]
+            convert.load_params(model, mf_tree(z, name))
+            specs = model.param_pspecs()
+            if not step:
+                loss, grads = loss_and_grads(model, batch)
+                res[f"{name}|loss"] = loss
+                res.update({f"{name}|g|{k}": S.gather(g, specs[k], mesh)
+                            for k, g in grads.items()})
+                res.update({f"{name}|local|{k}": torch.tensor(
+                    list(p.shape) == list(S.local_shape(
+                        model.param_shapes()[k][0], specs[k], mesh)))
+                    for k, p in model.named_parameters()})
+                continue
+            opt = meta["init_opt"]()
+            opt, metrics = fn(opt, batch, torch.Generator().manual_seed(0))
+            res[f"{key}|loss"] = metrics["loss"]
+            res[f"{key}|gnorm"] = metrics["grad_norm"]
+            res.update({f"{key}|p|{k}": S.gather(p.detach(), specs[k], mesh)
+                        for k, p in model.named_parameters()})
+            if name == "qwen3-32b" and mshape == (1, 4):
+                save_checkpoint(ckpt, 1, {
+                    "params": dict(model.named_parameters()), "opt": opt},
+                    shardings=named_shardings({
+                        "params": specs, "opt": optimizer_pspecs(model)},
+                        mesh))
+                res.update({f"ckpt|mu|{k}": S.gather(v, specs[k], mesh)
+                            for k, v in opt.mu.items()})
+    np.savez(f"{out}.{rank}.npz",
+             **{k: torch.as_tensor(v).detach().float().numpy()
+                for k, v in res.items()})
+
+
+# forward and decode of the recurrent and audio families on (1, 4)
+MF_DECODE = ("rwkv6-7b", "zamba2-2.7b", "whisper-small")
+# (shape name, global batch) of each decode leg: zamba2's batch-1 cache
+# holds the rank's heads (long_500k's layout), its batch-2 cache is
+# replicated over the model axis
+MF_DECODE_LEGS = {"rwkv6-7b": (("decode_32k", MF_B),),
+                  "zamba2-2.7b": (("decode_32k", MF_B), ("long_500k", 1)),
+                  "whisper-small": (("decode_32k", MF_B),)}
+
+
+def jax_mesh_families_main(inputs, out):
+    """The reference's side of tests/test_torch_mesh_families.py on 4 fake
+    devices, (1, 4): ``forward`` logits jitted with its specs' shardings,
+    then ``build_step``'s decode (Whisper's cross cache filled by
+    ``prefill_cross`` first) for MF_STEPS steps from an empty cache."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import SHAPES, ShapeSpec, get_config
+    from repro.launch.steps import _shard, build_step
+    from repro.models.api import RunConfig, build_model
+    from repro.models.sharding import compat_make_mesh, use_mesh
+    z = np.load(inputs)
+    res = {}
+    mesh = compat_make_mesh((1, 4), ("data", "model"))
+    run = RunConfig(**mf_run())
+    for name in MF_DECODE:
+        cfg = get_config(name).reduced()
+        with use_mesh(mesh):
+            m = build_model(cfg, run)
+            shape = SHAPES["prefill_32k"]
+            params = jax.tree.map(jnp.asarray, mf_tree(z, name))
+            f = jax.jit(m.forward, in_shardings=(
+                _shard(mesh, m.param_pspecs()),
+                _shard(mesh, m.input_pspecs(shape))))
+            res[f"{name}|fwd"] = f(params, {
+                k: jnp.asarray(v) for k, v in
+                mf_batch(z, name, "prefill").items()})
+        for shape_name, b in MF_DECODE_LEGS[name]:
+            fn, _, _ = build_step(name, shape_name, mesh, run_cfg=run,
+                                  cfg_override=cfg)
+            cache = m.init_cache(ShapeSpec("d", MF_SMAX, b, "decode"))
+            params = jax.tree.map(jnp.asarray, mf_tree(z, name))
+            with use_mesh(mesh):
+                if name == "whisper-small":
+                    cache = jax.jit(m.prefill_cross)(
+                        params, jnp.asarray(z["frames"][:b]), cache)
+                for t in range(MF_STEPS):
+                    logits, cache = fn(params, cache, {
+                        "tokens": jnp.asarray(z["tokens"][:b, t:t + 1]),
+                        "cache_len": jnp.asarray(t, jnp.int32)})
+                    res[f"{name}|b{b}|dec{t}"] = logits
+            res.update({f"{name}|b{b}|cache|{k}": v
+                        for k, v in cache.items()})
+    np.savez(out, **{k: np.asarray(v, np.float32) for k, v in res.items()})
+    print("jax mesh families ok")
+
+
+def port_mesh_families_job(rank, world, inputs, out):
+    """The port's side of tests/test_torch_mesh_families.py, one rank of 4
+    gloo CPU ranks on (1, 4), through ``launch.steps.build_step``."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+    torch.set_num_threads(1)
+    z = np.load(inputs)
+    res = {}
+    mesh = S.make_mesh((1, 4), ("data", "model"), "cpu")
+    run = RunConfig(**mf_run())
+    for name in MF_DECODE:
+        cfg = get_config(name).reduced()
+        for shape_name, b in (("prefill_32k", MF_B),) \
+                + MF_DECODE_LEGS[name]:
+            fn, _, meta = build_step(name, shape_name, mesh, run_cfg=run,
+                                     cfg_override=cfg)
+            model = meta["model"]
+            convert.load_params(model, mf_tree(z, name))
+            batch = {k: torch.from_numpy(v) for k, v in
+                     mf_batch(z, name, "prefill").items()}
+            with torch.no_grad():
+                if shape_name == "prefill_32k":
+                    res[f"{name}|fwd"] = model.forward(batch)
+                    res[f"{name}|last"] = fn(batch)
+                    continue
+                cache = model.init_cache(ShapeSpec("d", MF_SMAX, b,
+                                                   "decode"))
+                if name == "whisper-small":
+                    model.prefill_cross(batch["frames"][:b], cache)
+                for t in range(MF_STEPS):
+                    logits, cache = fn(cache, {
+                        "tokens": batch["tokens"][:b, t:t + 1],
+                        "cache_len": torch.tensor(t)})
+                    res[f"{name}|b{b}|dec{t}"] = logits
+            res.update({f"{name}|b{b}|cache|{k}": v
+                        for k, v in cache.items()})
+        # bf16: the same weights on the mesh and on one device (the port's)
+        bf = dataclasses.replace(cfg, dtype="bfloat16")
+        with torch.no_grad():
+            one = build_model(bf, run, device="cpu")
+            with S.use_mesh(mesh):
+                sharded = build_model(bf, run, device="cpu")
+            for mdl in (one, sharded):
+                convert.load_params(mdl, mf_tree(z, name))
+            batch = {k: torch.from_numpy(v) for k, v in
+                     mf_batch(z, name, "prefill").items()}
+            res[f"{name}|bf16|one"] = one.forward(batch)
+            res[f"{name}|bf16|mesh"] = sharded.forward(batch)
+    np.savez(f"{out}.{rank}.npz",
+             **{k: v.float().numpy() for k, v in res.items()})
