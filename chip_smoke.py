@@ -101,8 +101,10 @@ and then the mesh paths, four ranks each, all processes on ``cuda:0`` over
 gloo, each held against the port on one device with the same weights
 (run first and freed before the ranks start):
 
-  mesh/qwen3-32b, mesh/arctic-480b, mesh/train-smollm-360m
-               tensor-parallel prefill and sequence-sharded decode; expert-
+  mesh/qwen3-32b, mesh/smollm-360m, mesh/arctic-480b,
+  mesh/train-smollm-360m
+               tensor-parallel prefill and sequence-sharded decode (smollm's
+               15 heads padded to 16; both models in one spawn); expert-
                parallel and FSDP MoE; data-parallel training with ZeRO-1
                and a resume onto another mesh (the comments there say more)
   mesh/rwkv6-7b, mesh/zamba2-2.7b, mesh/whisper-small
@@ -114,12 +116,21 @@ gloo, each held against the port on one device with the same weights
                and K1 at 3 of 12 heads with the caches replicated. The
                three run in one spawn, each rank zeroing its counters
                before a family and reading them after it
+  mesh/zamba2-2.7b-b1
+               Zamba2 with a batch of 1 on (2, 2), in the same spawn: the
+               KV cache's sequence split over the data axis (the decode
+               steps write across the ranks' boundary), its heads and the
+               SSD heads over the model axis, with the (1, 4) legs' controls
   mesh/train-qwen3-32b
                the train step tensor-parallel at full width in fp32 (depth
                1) on (1, 4), and on (2, 2) with ZeRO-1: losses and the
                step-1 parameters against one device; no kernel
 
-then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
+then a ``roofline`` line: every timed mesh leg's collectives a step against
+the dry run's count of the same step on meta tensors (``launch/dryrun.py``;
+they must be equal), and the counted compute and memory terms of smollm's
+serve and train steps and qwen3's one-device decode beside their measured
+times; then one ``{"kernels": [...]}`` line (per kernel: launches on the paths,
 error, time, plain time, library time, bound; for WKV6 and SSD also the
 3xTF32 bound), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -155,10 +166,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TF32_FLOPS = 495e12   # the tensor cores in TF32; a 3xTF32 product is 3 of them
+from repro_torch.launch import roofline  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
+# dry run's roofline and the kernel bounds here read the same constants
+HBM_BYTES_PER_S = roofline.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: roofline.peak_flops("bfloat16"),
+              torch.float32: roofline.peak_flops("float32")}
+# the tensor cores in TF32; a 3xTF32 product is 3 of them
+TF32_FLOPS = roofline.peak_flops("tf32")
 KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECURRENCE_TOL = {dt: 5 * tol for dt, tol in KERNEL_TOL.items()}
 
@@ -464,8 +480,9 @@ def visible_pairs(Sq, Skv, causal, q_offset) -> int:
 
 
 def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
-                timed=False):
-    """Kernel vs plain on one prefill shape. Timed: ``ms`` and
+                timed=False, zero_heads=0):
+    """Kernel vs plain on one prefill shape (``zero_heads``: the last query
+    heads all zeros, as a padding head's are). Timed: ``ms`` and
     ``library_ms`` from FLASH_CALLS calls a graph, ``profiled_ms`` and
     ``library_profiled_ms`` the device time ``torch.profiler`` records for
     one call."""
@@ -473,6 +490,8 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
                                                      flash_attention_plain)
 
     q, k, v = flash_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed=SEED + 1)
+    if zero_heads:
+        q[:, :, Hq - zero_heads:] = 0
     got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
@@ -1045,7 +1064,7 @@ def phase_kernels() -> dict:
             check_decode(f"decode/mesh-zamba2-rank-b2/{dt_name(dt)}", 2,
                          MAX_SEQ, 8, 8, 80, dt, [8, 8], scalar_len=8),
             check_decode(f"decode/mesh-zamba2-rank-b1/{dt_name(dt)}", 1,
-                         MAX_SEQ, 8, 8, 80, dt, [8], scalar_len=8),
+                         ZB1_SMAX, 8, 8, 80, dt, [8], scalar_len=8),
             check_flash(f"flash/mesh-whisper-enc-rank/{dt_name(dt)}", 2,
                         1500, 1500, 3, 3, 64, dt, False),
             check_flash(f"flash/mesh-whisper-dec-rank/{dt_name(dt)}", 2, 32,
@@ -1056,6 +1075,29 @@ def phase_kernels() -> dict:
                          MAX_SEQ, 3, 3, 64, dt, [8, 8], scalar_len=8),
             check_decode(f"decode/mesh-whisper-cross-rank/{dt_name(dt)}", 2,
                          1500, 3, 3, 64, dt, [1500, 1500], scalar_len=1500),
+        )],
+        # this PR's mesh paths, at one rank's shapes: smollm-360m on (1, 4)
+        # with 15 heads padded to 16 (K2 at 4 heads, each reading its KV
+        # head by index, the last rank's fourth a zero head; K1's
+        # sequence-sharded decode at all 15/5 heads over a rank's 256
+        # positions), and zamba2-2.7b's batch 1 on (2, 2) (K4 at 40 of 80
+        # SSD heads, K2 at 16 of 32 heads of 80, K1 with the lse against a
+        # data rank's 6 of 12 positions, full and empty)
+        *[c for dt in (f32, bf16) for c in (
+            check_flash(f"flash/mesh-smollm-rank/{dt_name(dt)}", 2, 256, 256,
+                        4, 4, 64, dt, True),
+            check_flash(f"flash/mesh-smollm-pad-rank/{dt_name(dt)}", 2, 256,
+                        256, 4, 4, 64, dt, True, zero_heads=1),
+            check_decode_lse(f"decode-lse/smollm-shard/{dt_name(dt)}", 2, 256,
+                             15, 5, 64, dt, [0, 177]),
+            check_ssd(f"ssd/mesh-zamba2-2x2-rank/{dt_name(dt)}", 1, 256, 40,
+                      64, 64, 64, dt, True, state=False),
+            check_flash(f"flash/mesh-zamba2-2x2-rank/{dt_name(dt)}", 1, 256,
+                        256, 16, 16, 80, dt, True),
+            check_decode_lse(f"decode-lse/zamba2-b1-2x2/{dt_name(dt)}", 1, 6,
+                             16, 16, 80, dt, [6]),
+            check_decode_lse(f"decode-lse/zamba2-b1-2x2-empty/{dt_name(dt)}",
+                             1, 6, 16, 16, 80, dt, [0]),
         )],
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
@@ -1969,6 +2011,7 @@ def phase_train_lm(cfg) -> None:
         gnorms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(step_s[2:])[len(step_s[2:]) // 2]
+    STEP_TIMES["train/smollm-360m"] = steady * 1e3
     require(all(math.isfinite(x) for x in losses + gnorms),
             f"train: non-finite loss or grad norm: {losses} {gnorms}")
     require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
@@ -2165,34 +2208,43 @@ def summed_launches(ranks) -> dict:
             for k in ranks[0]["launches"]}
 
 
-class timed_collectives:
-    """Host seconds inside ``torch.distributed``'s all-reduce and
-    all-gather while active, the device synchronised before each call so
+@contextlib.contextmanager
+def timed_collectives():
+    """The collectives run inside the block, as the port's collective log
+    records them (``records``: kind, bytes, group), and the host seconds
+    inside them (``seconds``), the device synchronised before each call so
     that the compute it waits for is not counted (this adds syncs: used on
     a pass of its own)."""
+    from repro_torch.models import sharding as S
 
-    def __enter__(self):
-        import torch.distributed as dist
-        self.seconds, self.calls, self._saved = 0.0, 0, {}
-        for name in ("all_reduce", "all_gather"):
-            fn = getattr(dist, name)
-            self._saved[name] = fn
+    class Timed(S.CollectiveLog):
+        seconds = 0.0
 
-            def timed(*a, _fn=fn, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = _fn(*a, **kw)
-                torch.cuda.synchronize()
-                self.seconds += time.perf_counter() - t0
-                self.calls += 1
-                return res
-            setattr(dist, name, timed)
-        return self
+        def run(self, kind, nbytes, group_size, call):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().run(kind, nbytes, group_size, call)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
 
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-        for name, fn in self._saved.items():
-            setattr(dist, name, fn)
+    with S.log_collectives(Timed()) as log:
+        yield log
+
+
+def collectives_rec(tc, steps, wall) -> dict:
+    """A timed pass's line: per step its collectives (each kind's count and
+    bytes, the port's log summarised as the dry run summarises it), their
+    host milliseconds and share of the step's wall."""
+    from repro_torch.launch.collectives import summarize
+
+    per_step = {k: {"count": v["count"] / steps, "bytes": v["bytes"] / steps,
+                    "group": v["group"]}
+                for k, v in summarize(tc.records).items()}
+    return {"steps": steps, "calls_per_step": len(tc.records) / steps,
+            "per_step": per_step, "ms_per_step": wall / steps * 1e3,
+            "collective_ms_per_step": tc.seconds / steps * 1e3,
+            "share": tc.seconds / wall}
 
 
 def mesh_tokens(cfg):
@@ -2266,11 +2318,7 @@ def drive_lm(model, prompt, steps, timed_pass=False) -> dict:
                         "cache_len": MESH_START + t})
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            rec["collectives"] = {"steps": 8, "calls_per_step": tc.calls / 8,
-                                  "ms_per_step": wall / 8 * 1e3,
-                                  "collective_ms_per_step":
-                                      tc.seconds / 8 * 1e3,
-                                  "share": tc.seconds / wall}
+            rec["collectives"] = collectives_rec(tc, 8, wall)
     return rec
 
 
@@ -2311,83 +2359,127 @@ def yardstick_lm(cfg, run, prompt, steps, init_kw) -> dict:
     return rec
 
 
-QWEN3_LEGS = (("fp32-depth2", "float32", 2, MESH_FP32_TOL),
-              ("bf16-depth8", "bfloat16", 8, BF16_TOL))
+# qwen3-32b's and smollm-360m's legs (smollm's 15 heads padded to 16 on
+# the 4 ranks: the last rank's fourth head is a zero head)
+LM_LEGS = (("fp32-depth2", "float32", 2, MESH_FP32_TOL),
+           ("bf16-depth8", "bfloat16", 8, BF16_TOL))
+MESH_LM = ("qwen3-32b", "smollm-360m")
+# one-device step times the roofline phase prints beside the dry run's
+# counted terms, and every timed leg of a mesh path with the collectives
+# its step ran on the card (filled by the phases that measure them)
+STEP_TIMES = {}
+ROOFLINE_LEGS = []
 
 
-def mesh_qwen3_rank(rank, world, out):
-    """One rank of mesh/qwen3-32b on (data 1, model 4): every leg's
-    tensor-parallel prefill (K2 at 16 local heads) and sequence-sharded
-    decode (K1 with the lse over the rank's 256 positions)."""
+def mesh_lm_rank(rank, world, out):
+    """One rank of mesh/qwen3-32b and mesh/smollm-360m on (data 1, model
+    4): every leg's tensor-parallel prefill (K2 at the rank's 16 heads,
+    smollm's 4 of 16 padded) and sequence-sharded decode (K1 with the lse
+    over the rank's 256 positions, every head), the launch counters zeroed
+    before each model and read after it."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import sharding as S
     from repro_torch.models.api import RunConfig, build_model
 
     rank_begin()
     mesh = S.make_mesh((1, MESH_RANKS), ("data", "model"), "cuda")
-    cfg = get_config("qwen3-32b")
-    prompt, steps = mesh_tokens(cfg)
     rec = {}
-    for label, dtype, depth, _ in QWEN3_LEGS:
-        torch.cuda.reset_peak_memory_stats()
-        with S.use_mesh(mesh):
-            model = build_model(replace(cfg, n_layers=depth, dtype=dtype),
-                                RunConfig(sharded_decode=True),
-                                device="cuda")
-        model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
-                          layer_fan_in=True)
-        res = drive_lm(model, prompt, steps, timed_pass=True)
-        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        if rank:
-            res.pop("prefill"), res.pop("decode")
-        rec[label] = res
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
+    for name in MESH_LM:
+        ops.reset_launch_counts()
+        cfg = get_config(name)
+        prompt, steps = mesh_tokens(cfg)
+        legs = {}
+        for label, dtype, depth, _ in LM_LEGS:
+            torch.cuda.reset_peak_memory_stats()
+            with S.use_mesh(mesh):
+                model = build_model(replace(cfg, n_layers=depth, dtype=dtype),
+                                    RunConfig(sharded_decode=True),
+                                    device="cuda")
+            model.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                              layer_fan_in=True)
+            res = drive_lm(model, prompt, steps, timed_pass=True)
+            res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            if rank:
+                res.pop("prefill"), res.pop("decode")
+            legs[label] = res
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        legs["launches"] = ops.launch_counts()
+        rec[name] = legs
     rank_end(out, rank, rec)
 
 
-def phase_mesh_qwen3(cfg) -> dict:
-    """mesh/qwen3-32b at full width (d 5120, 64/8 heads of 128, d_ff 25600,
-    vocab 151936, qk_norm), the reference's own sharded-decode model
-    (tests/test_moe.py:128-162): per leg a prefill forward (B=2, S=256)
-    and 32 decode steps with ``sharded_decode=True`` over a 1024-long cache
-    (256 positions a rank) whose first 240 positions are seeded, so the
-    owner of the written position moves from rank 0 to rank 1 at step 17.
-    fp32 (depth 2) within 1e-4 of one device, bf16 (depth 8) within 0.5
-    with greedy agreement recorded, on per-layer fan-in weights (ROADMAP
-    §C4)."""
+_LM_RANKS = {}
+
+
+def mesh_lm_spawn() -> dict:
+    """The yardsticks (one device, each built and freed in turn), then one
+    spawn of ranks for both models; cached for the two paths."""
     from dataclasses import replace
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.api import RunConfig
 
-    prompt, steps = mesh_tokens(cfg)
-    want = {label: yardstick_lm(replace(cfg, n_layers=depth, dtype=dtype),
-                                RunConfig(), prompt, steps,
-                                {"layer_fan_in": True})
-            for label, dtype, depth, _ in QWEN3_LEGS}
-    ops.reset_launch_counts()             # the yardstick's do not count
-    ranks, wall = run_mesh("qwen3", mesh_qwen3_rank)
+    if not _LM_RANKS:
+        want = {}
+        for name in MESH_LM:
+            cfg = get_config(name)
+            prompt, steps = mesh_tokens(cfg)
+            for label, dtype, depth, _ in LM_LEGS:
+                want[name, label] = yardstick_lm(
+                    replace(cfg, n_layers=depth, dtype=dtype), RunConfig(),
+                    prompt, steps, {"layer_fan_in": True})
+        ops.reset_launch_counts()         # the yardsticks' do not count
+        ranks, wall = run_mesh("lm", mesh_lm_rank)
+        _LM_RANKS.update(want=want, ranks=ranks, wall=wall)
+    return _LM_RANKS
+
+
+def phase_mesh_lm(cfg) -> dict:
+    """mesh/qwen3-32b at full width (d 5120, 64/8 heads of 128, d_ff 25600,
+    vocab 151936, qk_norm), the reference's own sharded-decode model
+    (tests/test_moe.py:128-162), and mesh/smollm-360m at full width (d 960,
+    15/5 heads of 64 padded to 16 query heads, 4 a rank, vocab 49152
+    tied): per leg a prefill forward (B=2, S=256) and 32 decode steps with
+    ``sharded_decode=True`` over a 1024-long cache (256 positions a rank)
+    whose first 240 positions are seeded, so the owner of the written
+    position moves from rank 0 to rank 1 at step 17. fp32 (depth 2)
+    within 1e-4 of one device, bf16 (depth 8) within 0.5 with greedy
+    agreement recorded, on per-layer fan-in weights (ROADMAP §C4)."""
+    run = mesh_lm_spawn()
+    ranks = [r[cfg.name] for r in run["ranks"]]
     legs = []
-    for label, dtype, depth, tol in QWEN3_LEGS:
+    for label, dtype, depth, tol in LM_LEGS:
         got = ranks[0][label]
-        rec = lm_compare(label, got, want[label], tol)
+        want = run["want"][cfg.name, label]
+        rec = lm_compare(label, got, want, tol)
         rec.update(
             n_layers=depth, dtype=dtype,
             ranks={k: [r[label][k] for r in ranks] for k in (
                 "prefill_s", "prefill_again_s", "decode_ms_per_step",
                 "peak_memory_bytes", "collectives")},
-            one_device={k: want[label][k] for k in (
+            one_device={k: want[k] for k in (
                 "prefill_s", "prefill_again_s", "decode_ms_per_step",
                 "peak_memory_bytes")})
         legs.append(rec)
+        ROOFLINE_LEGS.append(dict(
+            path=f"mesh/{cfg.name}", leg=label, cfg=family_cfg(
+                cfg.name, dtype, depth), run={"sharded_decode": True},
+            mesh=(1, MESH_RANKS), shape=("decode", MAX_SEQ, MESH_B),
+            card=got["collectives"]["per_step"]))
+        if cfg.name == "qwen3-32b":
+            STEP_TIMES[f"qwen3-32b/one-device-decode/{label}"] = \
+                want["decode_ms_per_step"]
     launches = summed_launches(ranks)
-    emit("mesh", path="mesh/qwen3-32b", mesh={"data": 1, "model": MESH_RANKS},
-         transport="gloo, 4 processes on cuda:0", spawn_wall_s=wall,
-         legs=legs, launches=launches)
+    emit("mesh", path=f"mesh/{cfg.name}",
+         mesh={"data": 1, "model": MESH_RANKS},
+         transport="gloo, 4 processes on cuda:0",
+         spawn_wall_s_both_models=run["wall"], legs=legs, launches=launches)
     return launches
 
 
@@ -2573,13 +2665,8 @@ def mesh_train_rank(rank, world, out, ckpt):
                    "params": sum(p.numel() for p in tr.params.values()),
                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     with timed_collectives() as tc:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.step(MESH_TRAIN_STEPS)
-        wall = time.perf_counter() - t0
-    rec["bf16"]["collectives"] = {"step_s": wall, "collective_s": tc.seconds,
-                                  "calls": tc.calls,
-                                  "share": tc.seconds / wall}
+        _, wall = synced(lambda: tr.step(MESH_TRAIN_STEPS))
+    rec["bf16"]["collectives"] = collectives_rec(tc, 1, wall)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -2722,6 +2809,12 @@ def phase_mesh_train(cfg) -> dict:
     for a, b in zip(r0["losses"], z["losses"][EQUIV_CKPT:]):
         require(abs(a - b) <= 1e-5 * abs(b),
                 f"resumed loss {a} vs uninterrupted {b}")
+    from repro_torch.launch.train import run_config
+    ROOFLINE_LEGS.append(dict(
+        path="mesh/train-smollm-360m", leg="bf16", cfg=cfg,
+        run=run_config(zero1=True), mesh=(MESH_RANKS, 1),
+        shape=("train", TRAIN_SEQ, TRAIN_BATCH), lr=TRAIN_LR,
+        card=bf16[0]["collectives"]["per_step"]))
     emit("mesh", path="mesh/train-smollm-360m",
          mesh={"data": MESH_RANKS, "model": 1}, zero1=True,
          transport="gloo, 4 processes on cuda:0", spawn_wall_s=wall,
@@ -2767,6 +2860,11 @@ def phase_mesh_train(cfg) -> dict:
 
 FAMILY_STEPS = 8        # decode steps a leg, from an empty cache
 FAMILY_TIMED = 4        # more steps with the collectives timed
+# zamba2's batch-1 cache: 12 positions, so that on (2, 2), where its
+# sequence is split over the data axis (6 positions a rank), the decode
+# steps write across the ranks' boundary at step 6
+ZB1_SMAX = 12
+ZB1_PATH = "mesh/zamba2-2.7b-b1"
 # zamba2's legs also run the controls of ``plain_control``. Its prefill is
 # held to ZAMBA2_PREFILL_TOL, read off them on the card (PERF.md §6):
 # at fp32 depth 12 one device's kernels and plain forms sit 6.0e-4 apart,
@@ -2807,16 +2905,18 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
-def drive_family(model, timed_pass=False) -> dict:
+def drive_family(model, timed_pass=False, b1_only=False) -> dict:
     """One leg of a family path on ``model`` (one device or a rank):
     RWKV6 and Zamba2 prefill the MESH_B x MESH_S prompt (timed twice) and
     decode FAMILY_STEPS steps from an empty cache, Zamba2 at batch 2 (its
     cache replicated over the model axis on a mesh) and batch 1 (its heads
-    sharded); Whisper encodes MESH_B x 1500 frames drawn on the card, runs
+    sharded, and on data ranks its sequence split; ZB1_SMAX positions);
+    Whisper encodes MESH_B x 1500 frames drawn on the card, runs
     ``forward`` over the first 32 prompt tokens, fills the cross cache
     (``prefill_cross``) and decodes FAMILY_STEPS steps. Logits go to the
     host. With ``timed_pass``, FAMILY_TIMED more steps on a fresh cache
-    with the collectives timed."""
+    with the collectives timed. ``b1_only``: Zamba2's batch-1 legs alone
+    (the prompt's first row)."""
     from repro_torch.configs.base import ShapeSpec
 
     cfg = model.cfg
@@ -2834,19 +2934,21 @@ def drive_family(model, timed_pass=False) -> dict:
             del enc
             batch = {"frames": frames, "tokens": prompt[:, :32]}
         else:
-            batch = {"tokens": prompt}
+            batch = {"tokens": prompt[:1] if b1_only else prompt}
         for key in ("prefill_s", "prefill_again_s"):
             logits, rec[key] = synced(lambda: model.forward(batch))
         rec["prefill"] = logits.float().cpu()
         del logits
 
         def fresh(b):
-            cache = model.init_cache(ShapeSpec("mesh", MAX_SEQ, b, "decode"))
+            smax = ZB1_SMAX if cfg.family == "hybrid" and b == 1 else MAX_SEQ
+            cache = model.init_cache(ShapeSpec("mesh", smax, b, "decode"))
             if whisper:
                 model.prefill_cross(frames[:b], cache)
             return cache
 
-        batches = (MESH_B, 1) if cfg.family == "hybrid" else (MESH_B,)
+        batches = (1,) if b1_only else (MESH_B, 1) \
+            if cfg.family == "hybrid" else (MESH_B,)
         for b in batches:
             cache, prefill_cross_s = synced(lambda: fresh(b))
             outs = []
@@ -2862,23 +2964,19 @@ def drive_family(model, timed_pass=False) -> dict:
             if whisper:
                 rec["prefill_cross_s"] = prefill_cross_s
         if timed_pass:
-            cache = fresh(MESH_B)
+            tb = 1 if b1_only else MESH_B
+            cache = fresh(tb)
             with timed_collectives() as tc:
                 def run():
                     for t in range(FAMILY_TIMED):
                         model.decode_step(cache, {
-                            "tokens": steps[:, t:t + 1], "cache_len": t})
+                            "tokens": steps[:tb, t:t + 1], "cache_len": t})
                 _, wall = synced(run)
-            rec["collectives"] = {
-                "steps": FAMILY_TIMED,
-                "calls_per_step": tc.calls / FAMILY_TIMED,
-                "ms_per_step": wall / FAMILY_TIMED * 1e3,
-                "collective_ms_per_step": tc.seconds / FAMILY_TIMED * 1e3,
-                "share": tc.seconds / wall}
+            rec["collectives"] = collectives_rec(tc, FAMILY_TIMED, wall)
     return rec
 
 
-def drive_plain(model) -> dict:
+def drive_plain(model, b1_only=False) -> dict:
     """``drive_family``'s logits on the plain forms of the same weights
     (``attn_impl="plain"``): the control that says how far two sound
     arithmetics of the model sit apart."""
@@ -2887,7 +2985,7 @@ def drive_plain(model) -> dict:
     run = model.run
     model.run = replace(run, attn_impl="plain")
     try:
-        rec = drive_family(model)
+        rec = drive_family(model, b1_only=b1_only)
     finally:
         model.run = run
     return {k: rec[k] for k in ("prefill", "decode", "decode_b1") if k in rec}
@@ -2931,9 +3029,9 @@ def family_model(name, dtype, depth, mesh=None):
 
 
 def mesh_families_rank(rank, world, out):
-    """One rank of the three family paths on (data 1, model 4): each
-    family's legs with this rank's launch counters zeroed before the family
-    and read after it."""
+    """One rank of the three family paths on (data 1, model 4), then of
+    Zamba2's batch-1 path on (2, 2): each path's legs with this rank's
+    launch counters zeroed before it and read after it."""
     from repro_torch.kernels import ops
     from repro_torch.models import sharding as S
 
@@ -2960,6 +3058,26 @@ def mesh_families_rank(rank, world, out):
             torch.cuda.empty_cache()
         fam["launches"] = ops.launch_counts()
         rec[name] = fam
+    # Zamba2's batch 1 on (2, 2): the cache's sequence over the data axis,
+    # its heads (16 of 32) and SSD heads (40 of 80) over the model axis
+    mesh = S.make_mesh((2, 2), ("data", "model"), "cuda")
+    ops.reset_launch_counts()
+    fam = {}
+    for label, dtype, depth, _, _ in FAMILY_LEGS["zamba2-2.7b"]:
+        torch.cuda.reset_peak_memory_stats()
+        model = family_model("zamba2-2.7b", dtype, depth, mesh)
+        res = drive_family(model, timed_pass=True, b1_only=True)
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        res["plain"] = drive_plain(model, b1_only=True)
+        if rank:
+            for k in ("prefill", "decode_b1", "plain"):
+                res.pop(k, None)
+        fam[label] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    fam["launches"] = ops.launch_counts()
+    rec[ZB1_PATH] = fam
     rank_end(out, rank, rec)
 
 
@@ -3003,24 +3121,31 @@ def mesh_families_spawn() -> dict:
     return _FAMILY_RANKS
 
 
-def plain_control(got, one) -> dict:
+def plain_control(got, one, keys=("prefill", "decode", "decode_b1"),
+                  rows=slice(None)) -> dict:
     """The mesh's distance from one device beside four controls: one
     device on the kernels against one device on the plain forms, the mesh
     on the plain forms against one device on them, one device with every
     weight moved by one ulp (``ulp_nudge``) and one device with one rank's
-    heads mixed up (``rank_fault``), each against one device. The
-    prefill's distance also by position (the largest of each block of
-    FAMILY_STEPS positions): the decode legs see the first FAMILY_STEPS."""
+    heads mixed up (``rank_fault``), each against one device (its prefill
+    cut to ``rows``, those the mesh prefilled). The prefill's distance also
+    by position (the largest of each block of FAMILY_STEPS positions): the
+    decode legs see the first FAMILY_STEPS."""
+    def mine(rec, key):
+        return rec[key][rows] if key == "prefill" else rec[key]
+
     out = {}
-    for key in ("prefill", "decode", "decode_b1"):
+    for key in keys:
+        want = mine(one, key)
         out[key] = {
-            "mesh_vs_one": max_abs_err(got[key], one[key]),
-            "one_kernels_vs_plain": max_abs_err(one[key], one["plain"][key]),
+            "mesh_vs_one": max_abs_err(got[key], want),
+            "one_kernels_vs_plain": max_abs_err(want,
+                                                mine(one["plain"], key)),
             "mesh_plain_vs_one_plain": max_abs_err(got["plain"][key],
-                                                   one["plain"][key]),
-            "one_ulp_vs_one": max_abs_err(one["ulp"][key], one[key]),
-            "one_fault_vs_one": max_abs_err(one["fault"][key], one[key])}
-    d = (got["prefill"] - one["prefill"]).abs().amax(dim=(0, 2))
+                                                   mine(one["plain"], key)),
+            "one_ulp_vs_one": max_abs_err(mine(one["ulp"], key), want),
+            "one_fault_vs_one": max_abs_err(mine(one["fault"], key), want)}
+    d = (got["prefill"] - mine(one, "prefill")).abs().amax(dim=(0, 2))
     out["prefill_by_position_block"] = [
         float(b.max()) for b in d.split(FAMILY_STEPS)]
     out["logits_max_abs"] = float(one["prefill"].abs().max())
@@ -3058,6 +3183,11 @@ def phase_mesh_family(cfg) -> dict:
         if control:
             rec["control"] = plain_control(got, one)
             rec["prefill_tol"] = ZAMBA2_PREFILL_TOL[label]
+        ROOFLINE_LEGS.append(dict(
+            path=f"mesh/{cfg.name}", leg=label,
+            cfg=family_cfg(cfg.name, dtype, depth), run=None,
+            mesh=(1, MESH_RANKS), shape=("decode", MAX_SEQ, MESH_B),
+            card=got["collectives"]["per_step"]))
         times = [k for k in got if k.endswith(("_s", "_ms_per_step"))]
         rec.update(n_layers=depth or cfg.n_layers, dtype=dtype,
                    ranks={k: [r[cfg.name][label][k] for r in ranks]
@@ -3083,6 +3213,62 @@ def phase_mesh_family(cfg) -> dict:
             require(fault > rec["prefill_tol"],
                     f"{rec['leg']}: a rank fault moves the prefill {fault}, "
                     f"within the limit {rec['prefill_tol']}")
+    return launches
+
+
+def phase_mesh_zamba2_b1(cfg) -> dict:
+    """mesh/zamba2-2.7b-b1: Zamba2 with a batch of 1 on (data 2, model 2),
+    the reference's long_500k layout at full width: the KV cache's
+    sequence split over the data axis (ZB1_SMAX positions, 6 a rank, so
+    the decode steps write across the ranks' boundary at step 6) and its
+    heads over the model axis (16 of 32 heads of 80; the distributed
+    flash-decode on K1 with the lse, merged over the data axis), the SSD
+    (K4 at 40 of 80 heads in the prefill) and conv states over the model
+    axis and replicated over the data axis. Each leg (the family's fp32
+    depth 12 and bf16 depth 24) prefills the prompt's first row and
+    decodes FAMILY_STEPS steps, against one device (its batch-2 prefill's
+    first row, its batch-1 decode) with the controls of the (1, 4) legs
+    and their limits: the prefill's ZAMBA2_PREFILL_TOL, which the rank
+    fault must break, and the legs' decode limit."""
+    run = mesh_families_spawn()
+    ranks = [r[ZB1_PATH] for r in run["ranks"]]
+    legs = []
+    for label, dtype, depth, tol, _ in FAMILY_LEGS[cfg.name]:
+        got, one = ranks[0][label], run["want"][cfg.name, label]
+        rec = {"leg": label, "tol": tol,
+               "prefill_tol": ZAMBA2_PREFILL_TOL[label],
+               "control": plain_control(got, one, ("prefill", "decode_b1"),
+                                        slice(0, 1))}
+        for key, want in (("prefill", one["prefill"][:1]),
+                          ("decode_b1", one["decode_b1"])):
+            rec[f"{key}_max_abs_err"] = max_abs_err(got[key], want)
+            rec[f"{key}_greedy_agree"] = float(
+                (got[key].argmax(-1) == want.argmax(-1)).float().mean())
+        times = [k for k in got if k.endswith(("_s", "_ms_per_step"))]
+        rec.update(n_layers=depth, dtype=dtype,
+                   ranks={k: [r[label][k] for r in ranks]
+                          for k in times + ["peak_memory_bytes",
+                                            "collectives"]})
+        legs.append(rec)
+        ROOFLINE_LEGS.append(dict(
+            path=ZB1_PATH, leg=label, cfg=family_cfg(cfg.name, dtype, depth),
+            run=None, mesh=(2, 2), shape=("decode", ZB1_SMAX, 1),
+            card=got["collectives"]["per_step"]))
+    launches = summed_launches(ranks)
+    emit("mesh", path=ZB1_PATH, mesh={"data": 2, "model": 2},
+         transport="gloo, 4 processes on cuda:0",
+         spawn_wall_s_all_families=run["wall"], legs=legs, launches=launches)
+    for rec in legs:
+        require(rec["prefill_max_abs_err"] <= rec["prefill_tol"],
+                f"{rec['leg']}: b1 prefill {rec['prefill_max_abs_err']} > "
+                f"{rec['prefill_tol']}")
+        require(rec["decode_b1_max_abs_err"] <= rec["tol"],
+                f"{rec['leg']}: b1 decode {rec['decode_b1_max_abs_err']} > "
+                f"{rec['tol']}")
+        fault = rec["control"]["prefill"]["one_fault_vs_one"]
+        require(fault > rec["prefill_tol"],
+                f"{rec['leg']}: a rank fault moves the prefill {fault}, "
+                f"within the limit {rec['prefill_tol']}")
     return launches
 
 
@@ -3142,10 +3328,7 @@ def mesh_train_qwen3_rank(rank, world, out, snap):
             leg["grad_norms"].append(float(m["grad_norm"]))
             leg["step_s"].append(wall)
             if last:
-                leg["collectives"] = {"step_s": wall,
-                                      "collective_s": tc.seconds,
-                                      "calls": tc.calls,
-                                      "share": tc.seconds / wall}
+                leg["collectives"] = collectives_rec(tc, 1, wall)
             if i + 1 not in QWEN3_SNAPSHOTS:
                 continue
             counts = {"outside": 0, "outside_tight": 0, "elements": 0,
@@ -3228,9 +3411,15 @@ def phase_mesh_train_qwen3(cfg) -> dict:
 
     ranks, wall = run_mesh("train-qwen3", mesh_train_qwen3_rank, snap)
     shutil.rmtree(snap)
+    from repro_torch.launch.train import run_config
     legs = []
     for label, shape, zero1 in QWEN3_TRAIN_LEGS:
         per = [r[label] for r in ranks]
+        ROOFLINE_LEGS.append(dict(
+            path="mesh/train-qwen3-32b", leg=label, cfg=small,
+            run=run_config(zero1=zero1), mesh=shape,
+            shape=("train", TRAIN_SEQ, QWEN3_TRAIN_BATCH), lr=QWEN3_TRAIN_LR,
+            card=per[0]["collectives"]["per_step"]))
         losses = per[0]["losses"]
         require(all(math.isfinite(x) for r in per
                     for x in r["losses"] + r["grad_norms"]),
@@ -3268,6 +3457,110 @@ def phase_mesh_train_qwen3(cfg) -> dict:
     return summed_launches(ranks)
 
 
+# -- phase: roofline ---------------------------------------------------------------
+
+def phase_roofline(serve_records) -> None:
+    """The dry run's counts against the card's runs. Every timed leg of a
+    mesh path: ``launch/dryrun.py``'s count of the same step (its model,
+    depth, dtype, run config, batch and cache, on meta tensors, as rank 0
+    of a fake process group of the leg's mesh) must equal the collectives
+    the card's step ran, kind by kind (the bytes printed beside). Then
+    smollm-360m's serve step (8 busy slots), its training step and
+    qwen3-32b's one-device decode: the counted compute term (FLOPs at the
+    dtype's peak) and memory term (unfused bytes at HBM3's rate; both
+    roofline.py's) of the plain forms beside the measured step time."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import run_config
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    def spec(kind, seq, batch):
+        return ShapeSpec(kind, seq, batch, kind)
+
+    rows = []
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=MESH_RANKS)
+    try:
+        meshes = {}
+        for leg in ROOFLINE_LEGS:
+            if leg["mesh"] not in meshes:
+                meshes[leg["mesh"]] = S.make_mesh(leg["mesh"],
+                                                  ("data", "model"), "cpu")
+            mesh = meshes[leg["mesh"]]
+            run = leg["run"] if isinstance(leg["run"], RunConfig) \
+                else RunConfig(**(leg["run"] or {}))
+            with S.use_mesh(mesh):
+                call = dryrun.prepare(leg["cfg"].name, spec(*leg["shape"]),
+                                      mesh, replace(run, attn_impl="plain"),
+                                      leg["cfg"])[0]
+                dry = dryrun.counted(call)["collectives"]
+            rows.append({
+                "path": leg["path"], "leg": leg["leg"], "mesh": leg["mesh"],
+                "dry_run": {k: (v["count"], v["bytes"]) for k, v in
+                            dry.items()},
+                "card": {k: (v["count"], v["bytes"]) for k, v in
+                         leg["card"].items()},
+                "counts_equal": {k: v["count"] for k, v in dry.items()}
+                == {k: v["count"] for k, v in leg["card"].items()}})
+    finally:
+        dist.destroy_process_group()
+
+    terms = []
+
+    def term(name, dtype, call, measured_ms):
+        c = dryrun.counted(call)
+        terms.append({
+            "step": name, "dtype": dtype, "flops": c["flops"],
+            "bytes": c["bytes_accessed"],
+            "compute_ms": c["flops"] / roofline.peak_flops(dtype) * 1e3,
+            "memory_ms": c["bytes_accessed"] / roofline.HBM_BW * 1e3,
+            "measured_ms": measured_ms})
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    plain = RunConfig(attn_impl="plain")
+    cfg = get_config("smollm-360m")
+    model = build_model(cfg, plain, device="meta")
+    cache = model.init_cache(spec("decode", MAX_SEQ, MAX_SLOTS))
+    with torch.no_grad():
+        term("serve/smollm-360m (8 slots)", cfg.dtype,
+             lambda: model.decode_step(cache, {
+                 "tokens": meta(MAX_SLOTS, 1),
+                 "cache_len": meta(MAX_SLOTS, dtype=torch.long)}),
+             serve_records["smollm-360m"]["steady_state"]["ms_per_step"])
+    model = build_model(cfg, run_config(), device="meta")
+    step = make_train_step(model, lr=TRAIN_LR)
+    opt = adamw_init(dict(model.named_parameters()))
+    batch = {"tokens": meta(TRAIN_BATCH, TRAIN_SEQ),
+             "labels": meta(TRAIN_BATCH, TRAIN_SEQ)}
+    term("train/smollm-360m", cfg.dtype, lambda: step(opt, batch, None),
+         STEP_TIMES["train/smollm-360m"])
+    for label, dtype, depth, _ in LM_LEGS:
+        model = build_model(family_cfg("qwen3-32b", dtype, depth), plain,
+                            device="meta")
+        cache = model.init_cache(spec("decode", MAX_SEQ, MESH_B))
+        with torch.no_grad():
+            term(f"qwen3-32b/one-device-decode/{label}", dtype,
+                 lambda: model.decode_step(cache, {
+                     "tokens": meta(MESH_B, 1), "cache_len": meta()}),
+                 STEP_TIMES[f"qwen3-32b/one-device-decode/{label}"])
+    emit("roofline", card=roofline.CARD, legs=rows, one_device=terms)
+    for row in rows:
+        require(row["counts_equal"],
+                f"roofline: {row['path']} {row['leg']}: the dry run counts "
+                f"{row['dry_run']}, the card ran {row['card']}")
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -3295,12 +3588,14 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "launch/serve": ("decode_attention",),
                 # four ranks on cuda:0 over gloo; the counts are the ranks'
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
+                "mesh/smollm-360m": ("decode_attention", "flash_attention"),
                 "mesh/arctic-480b": ("decode_attention", "flash_attention"),
                 "mesh/train-smollm-360m": (),
                 "mesh/rwkv6-7b": ("wkv6",),
                 "mesh/zamba2-2.7b": ("decode_attention", "flash_attention",
                                      "ssd"),
                 "mesh/whisper-small": ("decode_attention", "flash_attention"),
+                ZB1_PATH: ("decode_attention", "flash_attention", "ssd"),
                 "mesh/train-qwen3-32b": ()}
 NO_KERNEL_PATHS = ("train/smollm-360m", "train/whisper-small",
                    "mesh/train-smollm-360m", "mesh/train-qwen3-32b")
@@ -3319,11 +3614,14 @@ def run_path(name, serve_records) -> dict:
     head, _, tail = name.partition("/")
     cname = {"launch/serve": None,
              "mesh/train-smollm-360m": "smollm-360m",
-             "mesh/train-qwen3-32b": "qwen3-32b"}.get(
+             "mesh/train-qwen3-32b": "qwen3-32b",
+             ZB1_PATH: "zamba2-2.7b"}.get(
         name, tail if head in ("train", "launch", "mesh") else head)
     cfg = get_config(cname) if cname else None
     ops.reset_launch_counts()
-    mesh_phase = {"mesh/qwen3-32b": phase_mesh_qwen3,
+    mesh_phase = {"mesh/qwen3-32b": phase_mesh_lm,
+                  "mesh/smollm-360m": phase_mesh_lm,
+                  ZB1_PATH: phase_mesh_zamba2_b1,
                   "mesh/arctic-480b": phase_mesh_arctic,
                   "mesh/train-smollm-360m": phase_mesh_train,
                   "mesh/rwkv6-7b": phase_mesh_family,
@@ -3393,6 +3691,7 @@ def main() -> int:
     serve_records = {}
     paths = {name: run_path(name, serve_records) for name in PATH_KERNELS}
     emit("launches", paths=paths)
+    phase_roofline(serve_records)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -83,9 +83,10 @@ def load_params(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
     specs = module.param_pspecs()
     flat = _checked(tree, {k: shape for k, (shape, _)
                            in module.param_shapes().items()})
+    # the rank's slice, zero-padded where its spec pads the dimension
     module.load_state_dict({
-        name: _tensor(flat[name][S.local_slices(
-            flat[name].shape, specs[name], mesh, name)], ref)
+        name: S.padded_to(_tensor(flat[name][S.local_slices(
+            flat[name].shape, specs[name], mesh, name)], ref), ref.shape)
         for name, ref in module.state_dict().items()})
     return module
 

@@ -26,7 +26,9 @@ batch, generator) -> (opt_state, metrics)`` (``meta["init_opt"]()`` makes
 the optimizer state laid out by the model's specs), ``prefill(batch) ->
 logits (B_local, V)`` and ``decode(cache, batch) -> (logits, cache)``.
 ``example_args`` keep the reference's order, the parameters first. With
-the mesh given, everything here runs on ``mesh.device_type``.
+the mesh given, everything here runs on ``mesh.device_type``, or on
+``device`` where the caller names one: ``"meta"`` for the dry run, whose
+step computes shapes and no values (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -82,21 +84,24 @@ def input_specs(model, shape: ShapeSpec) -> dict:
 
 def build_step(arch: str, shape_name: str, mesh,
                run_cfg: Optional[RunConfig] = None, lr: float = 3e-4,
-               cfg_override: Optional[ArchConfig] = None):
+               cfg_override: Optional[ArchConfig] = None,
+               device: Optional[str] = None):
     """Returns ``(fn, example_args, meta)``: ``fn`` the step on this rank,
     ``example_args`` meta tensors at the global shapes (the parameters
-    first), ``meta`` the names and the model. The model's parameters are
-    allocated (this rank's shards) and uninitialised: fill them with
-    ``meta["model"].init_params`` or ``convert.load_params``."""
+    first), ``meta`` the names and the model. ``shape_name`` names one of
+    ``SHAPES`` or is a ``ShapeSpec`` of its own. The model's parameters are
+    allocated (this rank's shards, on ``device``, default the mesh's) and
+    uninitialised: fill them with ``meta["model"].init_params`` or
+    ``convert.load_params``."""
     cfg = cfg_override if cfg_override is not None else get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     run_cfg = run_cfg or default_run_config(mesh, shape)
     with S.use_mesh(mesh):
-        model = build_model(cfg, run_cfg, device=mesh.device_type)
+        model = build_model(cfg, run_cfg, device=device or mesh.device_type)
     p_specs = meta_tensors(model.param_shapes())
     in_specs = input_specs(model, shape)
-    meta = {"arch": arch, "shape": shape_name, "kind": shape.kind,
-            "run_cfg": run_cfg, "model": model}
+    meta = {"arch": arch, "shape": shape.name, "kind": shape.kind,
+            "run_cfg": run_cfg, "model": model, "shape_spec": shape}
 
     if shape.kind == "train":
         opt_specs = adamw_init_specs(p_specs)

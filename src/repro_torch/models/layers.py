@@ -176,9 +176,11 @@ def one_cache_len(cache_len: torch.Tensor, who: str) -> torch.Tensor:
     (B,) tensor whose entries are equal. The reference writes such a
     model's caches with one scalar ``dynamic_update_slice``, so per-row
     lengths that differ raise (ROADMAP §C2) instead of being misread.
-    Comparing the entries reads them on the host."""
+    Comparing the entries reads them on the host; a meta tensor (a dry run's
+    planning step) has no entries to compare, and only its shape is taken."""
     if cache_len.ndim:
-        if bool((cache_len != cache_len.reshape(-1)[0]).any()):
+        if cache_len.device.type != "meta" and bool(
+                (cache_len != cache_len.reshape(-1)[0]).any()):
             raise ValueError(
                 f"{who}.decode_step takes one cache_len for the whole "
                 "batch, as the reference does; per-row lengths are not "

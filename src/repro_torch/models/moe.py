@@ -14,7 +14,9 @@ Counterpart of ``repro.models.moe``. Same parameter keys and stacked shapes
   3. the grouped GEMM: ``lax.ragged_dot`` (an XLA primitive, not a Pallas
      kernel) becomes a loop of ``torch.matmul`` over the contiguous groups
      of the sorted buffer. Reading the group sizes is one host
-     synchronisation per call (per MoE layer);
+     synchronisation per call (per MoE layer); on meta tensors (the dry
+     run) the ``C`` rows are split evenly instead, which counts the same
+     FLOPs as one product over them and reads every local expert once;
   4. ``silu(gate)·up`` in fp32 cast back to the model dtype, the down
      projection, the renormalised weights, an fp32 ``index_add_`` back to
      the token positions.
@@ -193,7 +195,16 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
     # the grouped GEMM over the contiguous expert groups of the sorted rows;
     # rows past the last group (not this shard's) stay 0 as in ragged_dot
     out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)
-    sizes = r.group_sizes.tolist()                         # host sync
+    meta = x.device.type == "meta"
+    if meta:
+        # no values to route by (a dry run's planning step): the C packed
+        # rows split evenly over the local experts, whose FLOPs are one
+        # product over the C rows however they split, and every local
+        # expert's weights read once (an expert with no rows still counts)
+        C = xin.shape[0]
+        sizes = [C // n_local + (e < C % n_local) for e in range(n_local)]
+    else:
+        sizes = r.group_sizes.tolist()                     # host sync
     chunk = n_local if gather is None else gather.chunk
     start = 0
     gathered = []
@@ -206,7 +217,7 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
         off = 0 if gather is None else e0
         for e in range(e0, e1):
             n = sizes[e]
-            if n == 0:
+            if n == 0 and not meta:
                 continue
             rows = xin[start:start + n]
             g = torch.matmul(rows, wg[e - off])

@@ -54,8 +54,20 @@ the leaf. That is what the reference does at the same place: ``jax.jit``
 with an ``in_shardings`` of ``P("model")`` on a (6, 2) array over four
 devices raises ``ValueError`` ("... implies that the global size of its
 dimension 0 should be divisible by 4"), as does ``jax.device_put`` (checked
-with JAX 0.9 on four fake CPU devices). GSPMD pads only intermediate values
-it partitions itself; padding here waits for a later slice (ROADMAP A13d).
+with JAX 0.9 on four fake CPU devices). A ``Padded`` spec entry
+instead splits its dimension by whole blocks (a head's columns, a
+vocabulary row) and zero-pads it to the next multiple of the shards, as
+GSPMD pads the heads it partitions itself: every rank then holds the same
+number of blocks, the trailing ranks some or all of them zeros
+(``local_shape``, ``local_shard``, ``shard_param``, ``keep_local``), and
+``gather`` drops the padding. A padded entry is the axis name to every
+comparison, so a spec with one equals the reference's.
+
+Every collective notes its kind (the HLO's name: ``all-reduce``,
+``all-gather``), the bytes of its result buffer and its group size into
+the active ``CollectiveLog`` (``log_collectives``; none by default, and
+then nothing is noted): the port's counterpart of parsing the optimized
+HLO for its collectives (``launch/collectives.py``).
 
 The collectives run over whatever backend the default group has. On one
 H100 a mesh of N ranks is N processes on ``cuda:0``, where NCCL refuses two
@@ -101,6 +113,34 @@ def entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class Padded(str):
+    """A spec entry over one mesh axis that splits a dimension of ``size``
+    by whole blocks of ``unit`` (query heads: ``unit`` the head dim) and
+    pads it with zero blocks to a multiple of the axis's ranks. It is the
+    axis name to ``==``, ``hash`` and the mesh, so a spec holding one
+    equals the reference's."""
+
+    def __new__(cls, axis: str, size: int, unit: int = 1):
+        if size % unit:
+            raise ValueError(f"{size} is not a whole number of {unit}-wide "
+                             "blocks")
+        obj = super().__new__(cls, axis)
+        obj.size, obj.unit = int(size), int(unit)
+        return obj
+
+
+def blocks_per_rank(n_blocks: int, axes, mesh: Optional["Mesh"] = None
+                    ) -> Tuple[int, int, int]:
+    """``(per, first, real)``: the blocks each rank of ``axes`` holds once
+    ``n_blocks`` are padded to a multiple of the ranks, this rank's first
+    block, and how many of its blocks are real (not padding)."""
+    mesh = _mesh(mesh)
+    n = 1 if mesh is None else mesh.size(axes)
+    per = -(-n_blocks // n)
+    first = (0 if mesh is None else mesh.index(axes)) * per
+    return per, first, max(0, min(per, n_blocks - first))
 
 
 class Mesh:
@@ -248,37 +288,64 @@ def constrain(x: torch.Tensor, spec: P) -> torch.Tensor:
 
 # -- shards ----------------------------------------------------------------------
 
-def local_slices(shape: Sequence[int], spec: P, mesh: Optional[Mesh] = None,
-                 name: str = "tensor") -> Tuple[slice, ...]:
-    """This rank's slice of a global ``shape`` laid out by ``spec``."""
+def _layout(shape: Sequence[int], spec: P, mesh: Optional[Mesh],
+            name: str) -> Tuple[Tuple[slice, ...], Tuple[int, ...]]:
+    """This rank's slice of the global ``shape`` (its real part) and the
+    shape it holds (the slice plus any zero padding at the end)."""
     mesh = _mesh(mesh)
     if len(spec) > len(shape):
         raise ValueError(f"{name}: spec {spec} has more entries than its "
                          f"shape {tuple(shape)}")
-    out = []
+    real, held = [], []
     for i, n in enumerate(shape):
         entry = spec[i] if i < len(spec) else None
         k = 1 if mesh is None else mesh.size(entry)
-        if n % k:
+        j = 0 if mesh is None else mesh.index(entry)
+        if isinstance(entry, Padded):
+            if n != entry.size:
+                raise ValueError(f"{name}: dimension {i} of {tuple(shape)} "
+                                 f"is not the {entry.size} its spec pads")
+            step = -(-n // entry.unit // k) * entry.unit
+        elif n % k:
             raise ValueError(
                 f"{name}: dimension {i} of {tuple(shape)} is not divisible "
                 f"by the {k} shards of {entry!r} (spec {spec})")
-        step = n // k
-        j = 0 if mesh is None else mesh.index(entry)
-        out.append(slice(j * step, (j + 1) * step))
-    return tuple(out)
+        else:
+            step = n // k
+        real.append(slice(min(j * step, n), min((j + 1) * step, n)))
+        held.append(step)
+    return tuple(real), tuple(held)
+
+
+def local_slices(shape: Sequence[int], spec: P, mesh: Optional[Mesh] = None,
+                 name: str = "tensor") -> Tuple[slice, ...]:
+    """This rank's slice of a global ``shape`` laid out by ``spec``: its
+    real part, without the padding of a ``Padded`` entry."""
+    return _layout(shape, spec, mesh, name)[0]
 
 
 def local_shape(shape: Sequence[int], spec: P, mesh: Optional[Mesh] = None,
                 name: str = "tensor") -> Tuple[int, ...]:
-    return tuple(s.stop - s.start
-                 for s in local_slices(shape, spec, mesh, name))
+    """The shape this rank holds of a global ``shape``, padding included."""
+    return _layout(shape, spec, mesh, name)[1]
+
+
+def padded_to(part: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``part`` zero-padded at the end of each dimension to ``shape`` (the
+    rank's real part -> what it holds); ``part`` itself when it fills it."""
+    if tuple(part.shape) == tuple(shape):
+        return part
+    out = torch.zeros(shape, dtype=part.dtype, device=part.device)
+    out[tuple(slice(0, n) for n in part.shape)] = part
+    return out
 
 
 def local_shard(full: torch.Tensor, spec: P, mesh: Optional[Mesh] = None,
                 name: str = "tensor") -> torch.Tensor:
-    """This rank's shard of the global tensor ``full`` (a view)."""
-    return full[local_slices(full.shape, spec, mesh, name)]
+    """This rank's shard of the global tensor ``full``: a view, or a
+    zero-padded copy where a ``Padded`` entry pads it."""
+    real, held = _layout(full.shape, spec, mesh, name)
+    return padded_to(full[real], held)
 
 
 def shard_param(shape: Sequence[int], dtype: torch.dtype, spec: P,
@@ -286,10 +353,14 @@ def shard_param(shape: Sequence[int], dtype: torch.dtype, spec: P,
                 device) -> torch.nn.Parameter:
     """An uninitialised parameter of global ``shape``: this rank's shard of
     it on ``mesh`` (the whole with none), made without gradients (a
-    trainer turns them on)."""
+    trainer turns them on). Padding, where a ``Padded`` entry adds some, is
+    zeros."""
+    make = torch.empty
     if mesh is not None:
-        shape = local_shape(shape, spec, mesh, name)
-    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+        real, shape = _layout(shape, spec, mesh, name)
+        if tuple(s.stop - s.start for s in real) != shape:
+            make = torch.zeros
+    return torch.nn.Parameter(make(shape, dtype=dtype, device=device),
                               requires_grad=False)
 
 
@@ -322,9 +393,12 @@ def shard_state_dict(sd: Dict[str, torch.Tensor], pspecs: Dict[str, P],
 
 def gather(local: torch.Tensor, spec: P,
            mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """The global tensor from every rank's ``local`` shard (collective)."""
+    """The global tensor from every rank's ``local`` shard (collective),
+    the padding of ``Padded`` entries dropped."""
     for dim, entry in enumerate(spec):
         local = all_gather(local, entry, dim, mesh)
+        if isinstance(entry, Padded):
+            local = local.narrow(dim, 0, entry.size)
     return local
 
 
@@ -339,9 +413,54 @@ def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _sum(x: torch.Tensor, g) -> torch.Tensor:
+class CollectiveLog:
+    """The collectives run while it is active (``log_collectives``):
+    ``records`` holds one ``{"kind", "bytes", "group"}`` each, ``bytes``
+    the result buffer's (a sum's fp32 buffer, a gather's whole output).
+    ``run`` makes every collective of the port: a subclass may time it."""
+
+    def __init__(self):
+        self.records = []
+
+    def run(self, kind: str, nbytes: int, group_size: int, call):
+        self.records.append({"kind": kind, "bytes": int(nbytes),
+                             "group": int(group_size)})
+        return call()
+
+
+_LOG: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_collective_log", default=None)
+
+
+@contextlib.contextmanager
+def log_collectives(log: CollectiveLog):
+    """Note every collective into ``log`` inside the block."""
+    token = _LOG.set(log)
+    try:
+        yield log
+    finally:
+        _LOG.reset(token)
+
+
+def _collective(kind: str, out: torch.Tensor, n_out: int, g, call,
+                log: Optional[CollectiveLog] = None) -> None:
+    """Run ``call()``, a collective over group ``g`` whose result buffer is
+    ``n_out`` tensors like ``out``, noted into ``log``, by default the
+    active one, if any."""
+    log = log if log is not None else _LOG.get()
+    if log is None:
+        call()
+    else:
+        log.run(kind, n_out * out.numel() * out.element_size(),
+                dist.get_world_size(g), call)
+
+
+def _sum(x: torch.Tensor, g, log: Optional[CollectiveLog] = None
+         ) -> torch.Tensor:
     y = x.float() if x.dtype != torch.float32 else x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
+    _collective("all-reduce", y, 1, g,
+                lambda: dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g),
+                log)
     return y.to(x.dtype)
 
 
@@ -351,7 +470,8 @@ def _gather(x: torch.Tensor, g, n: int, dim: int) -> torch.Tensor:
     # build takes (no arithmetic touches them on the way)
     raw = src.view(torch.float16) if src.dtype == torch.bfloat16 else src
     parts = [torch.empty_like(raw) for _ in range(n)]
-    dist.all_gather(parts, raw, group=g)
+    _collective("all-gather", raw, n, g,
+                lambda: dist.all_gather(parts, raw, group=g))
     out = torch.cat(parts, dim=dim)
     return out.view(torch.bfloat16) if src.dtype == torch.bfloat16 else out
 
@@ -366,28 +486,31 @@ class _Psum(torch.autograd.Function):
         return dy, None
 
 
+# autograd runs a CUDA backward on a thread of its own, where the log's
+# context variable is unset: a backward notes into the log its forward saw
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
-        ctx.g = g
+        ctx.g, ctx.log = g, _LOG.get()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
-        return _sum(dy, ctx.g), None
+        return _sum(dy, ctx.g, ctx.log), None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, n, i, dim, reduce_grad):
         ctx.g, ctx.i, ctx.dim, ctx.size = g, i, dim, x.shape[dim]
-        ctx.reduce_grad = reduce_grad
+        ctx.reduce_grad, ctx.log = reduce_grad, _LOG.get()
         return _gather(x, g, n, dim)
 
     @staticmethod
     def backward(ctx, dy):
         if ctx.reduce_grad:
-            dy = _sum(dy, ctx.g)
+            dy = _sum(dy, ctx.g, ctx.log)
         return (dy.narrow(ctx.dim, ctx.i * ctx.size, ctx.size).contiguous(),
                 None, None, None, None, None)
 
@@ -452,7 +575,8 @@ def pmax(x: torch.Tensor, axes, mesh: Optional[Mesh] = None) -> torch.Tensor:
     if g is None:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=g)
+    _collective("all-reduce", y, 1, g,
+                lambda: dist.all_reduce(y, op=dist.ReduceOp.MAX, group=g))
     return y
 
 
@@ -504,9 +628,14 @@ def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, axes,
 
 
 def vocab_logits(x: torch.Tensor, head: torch.Tensor, axes,
-                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+                 mesh: Optional[Mesh] = None,
+                 vocab: Optional[int] = None) -> torch.Tensor:
     """``x @ head`` for a replicated ``x`` and a ``head`` whose columns
     (the vocabulary) are split over ``axes``: the local columns, gathered
-    (every rank returns the whole)."""
-    return all_gather(torch.matmul(copy_to(x, axes, mesh), head), axes, -1,
-                      mesh)
+    (every rank returns the whole), cut to ``vocab`` columns where the
+    split padded them (so no softmax, argmax or loss sees the padding)."""
+    out = all_gather(torch.matmul(copy_to(x, axes, mesh), head), axes, -1,
+                     mesh)
+    if vocab is not None and out.shape[-1] != vocab:
+        out = out[..., :vocab]
+    return out

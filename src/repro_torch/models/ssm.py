@@ -46,10 +46,15 @@ those specs, the collectives written out (each carries its gradient):
   * the KV cache follows ``cache_pspecs``: for a batch above 1 it is
     replicated over the model axis, so a step gathers the new K/V heads
     before it writes them and attends at its heads (a contiguous copy of
-    them); for a batch of 1 on a mesh whose data axes have one rank it
-    holds the rank's heads. A batch of 1 with data ranks above one (the
-    reference's sequence-parallel ``long_500k`` cache) raises
-    ``ValueError`` (ROADMAP A13d);
+    them); for a batch of 1 it holds the rank's heads, and where the data
+    axes have more than one rank its sequence is split over them too (the
+    reference's sequence-parallel ``long_500k`` layout): every data rank
+    runs the same recurrence on the replicated token, the rank that owns
+    the written position writes it, and the ranks' partial attentions
+    merge over the data axes (``decode_attention_seq_sharded``: K1 with
+    the rows' log-sum-exp, ``pmax`` and two ``psum``s). A batch of 1 on
+    data ranks with a model axis of one rank is refused: its cache cannot
+    be told from a batch split one row a rank;
   * the embedding is split over the vocabulary (a masked local lookup,
     then ``psum``) and ``lm_head`` by columns (the logits gathered).
 """
@@ -69,6 +74,8 @@ from repro_torch.kernels.chunked import ssd_decode
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
+from repro_torch.models.distributed_attention import \
+    decode_attention_seq_sharded
 from repro_torch.models.sharding import P
 
 
@@ -281,12 +288,13 @@ class Zamba2Model(nn.Module):
         (``batch`` is then the global batch)."""
         b, specs = batch or shape.global_batch, None
         if self.mesh is not None:
-            if b == 1 and self.mesh.size(self.run.data_axes) > 1:
+            if b == 1 and self.mesh.size(self.run.data_axes) > 1 \
+                    and self.n_model == 1:
                 raise ValueError(
                     f"{self.cfg.name}: a batch of 1 on data axes of "
-                    f"{self.mesh.size(self.run.data_axes)} ranks takes the "
-                    "reference's sequence-parallel KV cache, which is not "
-                    "ported (ROADMAP A13d)")
+                    f"{self.mesh.size(self.run.data_axes)} ranks needs a "
+                    "model axis of more than one rank, which tells its "
+                    "sequence-parallel KV cache from a batch split by rows")
             specs = self.cache_pspecs(ShapeSpec(shape.name, shape.seq_len, b,
                                                 "decode"))
         return S.local_zeros(self.cache_shapes(shape, b), specs, self.mesh,
@@ -363,6 +371,12 @@ class Zamba2Model(nn.Module):
         if cache_kv is None:
             o = ops.flash_attention(q, k, v, causal=True, q_chunk=run.q_chunk,
                                     kv_chunk=run.kv_chunk, impl=run.attn_impl)
+        elif self.n_model > 1 and cache_kv[0].shape[2] != cfg.n_kv_heads \
+                and mesh.size(run.data_axes) > 1:
+            # batch 1: the rank's heads of its data ranks' sequence slice
+            o = decode_attention_seq_sharded(
+                q, *cache_kv, k, v, write_at, seq_axes=run.data_axes,
+                impl=run.attn_impl, mesh=mesh, gather_q=False)
         else:
             ck, cv = cache_kv
             if self.n_model > 1 and ck.shape[2] == cfg.n_kv_heads:

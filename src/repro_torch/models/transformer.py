@@ -36,22 +36,33 @@ than one rank ``forward`` and ``decode_step`` run the tensor-parallel
 arithmetic that GSPMD derives from those specs in the reference
 (Megatron-style), with the collectives written out:
 
-  * ``embed`` is split over the vocabulary (``P(m, None)``): a masked
-    local lookup, then a ``psum``; ``lm_head`` (or the tied embedding) is
-    split over the vocabulary too, and the logits are all-gathered, so
-    every rank returns ``(B_local, S, V)``;
-  * ``wq`` is split by columns, giving the rank its ``Hq / n`` heads;
-    ``wk``/``wv`` are replicated (every ``DecoderLM`` config has fewer than
-    16 KV heads) and the rank keeps the KV heads its query heads read,
-    ``[a // g, (b - 1) // g + 1)`` for heads ``[a, b)``; K2 (prefill) or K1
-    (decode) runs at the local heads; ``wo`` is split by rows, then ``psum``;
+  * ``embed`` is split over the vocabulary (``P(m, None)``, padded with
+    zero rows where the ranks do not divide it): a masked local lookup,
+    then a ``psum``; ``lm_head`` (or the tied embedding) is split over the
+    vocabulary too, and the logits are all-gathered and cut to the
+    vocabulary, so every rank returns ``(B_local, S, V)``;
+  * ``wq`` is split by columns, giving the rank its ``ceil(Hq / n)``
+    heads: where ``n`` does not divide ``Hq`` (smollm's 15 on 4 or 16
+    ranks, arctic's 56 on 16) the heads are padded with zero heads, as
+    GSPMD pads them (``sharding.Padded``), and a padding head's output is
+    masked to exact zeros, so neither it nor its gradient reaches the
+    sum; ``wk``/``wv`` are replicated when the config has fewer than 16
+    KV heads (every shipped one) and the rank keeps the KV heads its
+    query heads read, ``[a // g, (b - 1) // g + 1)`` for heads ``[a, b)``
+    (a padding head reads the last one); with 16 KV heads or more they are
+    split by columns with the cache's head axis (the reference's
+    KV-head-sharded layout), and the rank attends at its own ``Hkv / n``
+    KV heads; K2 (prefill) or K1 (decode) runs at the local heads; ``wo``
+    is split by rows, then ``psum``;
   * the dense MLP splits by columns (``w_gate``, ``w_up``, ``b_up``) and
     rows (``w_down``), then ``psum``; MoE layers go to ``moe_ffn``'s
     expert-parallel branch;
   * the batch is this rank's rows of ``input_pspecs`` (the caller splits
     it); activations are replicated over the model axis;
   * the KV cache is this rank's part of ``cache_pspecs``: sequence-sharded
-    over the model axis (``init_cache`` makes it). Decode follows the
+    over the model axis (``init_cache`` makes it), or, with 16 KV heads or
+    more, split by KV heads, which a rank writes and reads as one device
+    does. The sequence-sharded cache's decode follows the
     reference's branches: per-slot ``(B,)`` lengths scatter each row into
     the rank that owns its position, then attend over the whole cache; a
     scalar length with ``RunConfig.sharded_decode`` runs the distributed
@@ -68,10 +79,10 @@ column-parallel matmul (``wq``, the MLP, the head) and on the replicated
 values per-rank compute reads (the K/V a rank picks its heads from,
 ``q_norm``), so the gradient of a replicated leaf is the whole one on every
 rank and a sharded leaf's is its slice; the vocabulary-split lookup's
-``psum`` hands each rank its rows' gradient. Not on a mesh yet (ROADMAP
-A13d): a KV-head-sharded cache (16 KV heads or more: no config has them),
-and a head count or vocabulary the model axis does not divide
-(``ValueError``; GSPMD would pad). With no mesh the code path is the
+``psum`` hands each rank its rows' gradient. Padding stays exactly 0: its
+gradient is 0 (masked head outputs, dropped logit columns, rows no token
+looks up), so AdamW leaves it 0, and ``sharding.gather`` drops it before a
+checkpoint or ``convert`` sees it. With no mesh the code path is the
 single-device one.
 """
 from __future__ import annotations
@@ -108,14 +119,12 @@ class DecoderLM(nn.Module):
         self.mesh = S.get_mesh()
         self.n_model = 1 if self.mesh is None \
             else self.mesh.size(self.run.model_axis)
-        if self.n_model > 1:
-            if cfg.n_heads % self.n_model:
-                raise ValueError(
-                    f"{cfg.name}: {cfg.n_heads} query heads do not split "
-                    f"over {self.n_model} ranks of the model axis")
-            if cfg.n_kv_heads >= 16:
-                raise ValueError(f"{cfg.name}: a KV-head-sharded cache "
-                                 "(16 KV heads or more) is not ported")
+        # the reference's layout for 16 KV heads or more: K/V split by heads
+        self._kv_sharded = self.n_model > 1 and cfg.n_kv_heads >= 16
+        if self._kv_sharded and cfg.n_kv_heads % self.n_model:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_kv_heads} KV heads do not split over "
+                f"{self.n_model} ranks of the model axis")
         dev = torch.device(device) if str(device) == "meta" \
             else resolve_device(device)
         self._full = self.param_shapes()
@@ -180,8 +189,12 @@ class DecoderLM(nn.Module):
     def param_pspecs(self) -> Dict[str, P]:
         """The reference's ``param_pspecs``, keyed by ``state_dict`` name."""
         cfg, m = self.cfg, self.run.model_axis
+        # query heads split by whole heads, zero heads padding the split
+        heads = S.Padded(m, cfg.n_heads * cfg.resolved_head_dim,
+                         cfg.resolved_head_dim)
+        vocab = S.Padded(m, cfg.vocab)
         layers = {"ln1": P(None, None), "ln2": P(None, None),
-                  "wq": P(None, None, m), "wo": P(None, m, None)}
+                  "wq": P(None, None, heads), "wo": P(None, heads, None)}
         # KV projections: shard heads on the model axis only when there are
         # enough KV heads; MQA/GQA-with-few-heads replicates KV (cheap)
         kv = P(None, None, m) if cfg.n_kv_heads >= 16 else P(None, None, None)
@@ -200,10 +213,10 @@ class DecoderLM(nn.Module):
             layers.update({"w_up": P(None, None, m), "b_up": P(None, m),
                            "w_down": P(None, m, None),
                            "b_down": P(None, None)})
-        out = {"embed": P(m, None), "final_norm": P(None)}
+        out = {"embed": P(vocab, None), "final_norm": P(None)}
         out.update({f"layers.{k}": v for k, v in layers.items()})
         if not cfg.tie_embeddings:
-            out["lm_head"] = P(None, m)
+            out["lm_head"] = P(None, vocab)
         return out
 
     def input_pspecs(self, shape: ShapeSpec) -> Dict[str, P]:
@@ -244,21 +257,18 @@ class DecoderLM(nn.Module):
         moe_keys = moe_param_shapes(self.cfg) if self.cfg.moe else {}
         specs = self.param_pspecs()
 
-        def where(name):
-            full = self._full[name][0]
-            if self.mesh is None:
-                return full, None
-            return full, S.local_slices(full, specs[name], self.mesh, name)
-
         def fill(p, name, scale=None):
-            full, sl = where(name)
-            t = L.dense_init(generator, full, p.dtype, scale=scale,
-                             device=p.device)
-            p.copy_(t if sl is None else t[sl])
+            t = L.dense_init(generator, self._full[name][0], p.dtype,
+                             scale=scale, device=p.device)
+            p.copy_(S.keep_local(t, specs[name], self.mesh, name))
 
         for k, p in self.layers.items():
             if k in moe_keys:
-                init_moe_param(generator, k, p, *where(f"layers.{k}"))
+                name = f"layers.{k}"
+                full = self._full[name][0]
+                init_moe_param(generator, k, p, full, None if self.mesh is None
+                               else S.local_slices(full, specs[name],
+                                                   self.mesh, name))
             elif k.startswith("ln") or k.endswith("norm"):
                 p.fill_(1.0)
             elif k.startswith("b_"):
@@ -314,17 +324,22 @@ class DecoderLM(nn.Module):
         this step's positions. With ``cache_kv`` given, this step's K/V are
         written into it in place at ``write_at`` — a (rows, positions) index
         pair for per-slot lengths, a one-element position tensor for a scalar
-        length — and attention runs over ``attn_len`` positions."""
-        cfg, run = self.cfg, self.run
+        length — and attention runs over ``attn_len`` positions. On a mesh
+        whose KV heads are split (``_kv_sharded``) these are the rank's
+        ``Hq / n`` query and ``Hkv / n`` KV heads on its part of the cache,
+        the projections' input through ``copy_to`` and ``wo``'s rows
+        summed; with one rank of the model axis both are identities."""
+        cfg, run, mesh, m = self.cfg, self.run, self.mesh, self.run.model_axis
         b, s, _ = x.shape
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        h = self._norm(x, w["ln1"])
+        hq, hkv = cfg.n_heads // self.n_model, cfg.n_kv_heads // self.n_model
+        hd = cfg.resolved_head_dim
+        h = S.copy_to(self._norm(x, w["ln1"]), m, mesh)
         q = torch.matmul(h, w["wq"]).reshape(b, s, hq, hd)
         k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
         v = torch.matmul(h, w["wv"]).reshape(b, s, hkv, hd)
         if cfg.qk_norm:
-            q = L.rms_norm(q, w["q_norm"])
-            k = L.rms_norm(k, w["k_norm"])
+            q = L.rms_norm(q, S.copy_to(w["q_norm"], m, mesh))
+            k = L.rms_norm(k, S.copy_to(w["k_norm"], m, mesh))
         q = L.rotate(q, *rope)
         k = L.rotate(k, *rope)
         if cache_kv is None:
@@ -340,7 +355,7 @@ class DecoderLM(nn.Module):
                 ck.index_copy_(1, write_at, k)
                 cv.index_copy_(1, write_at, v)
             o = ops.decode_attention(q, ck, cv, attn_len, impl=run.attn_impl)
-        return torch.matmul(o.reshape(b, s, hq * hd), w["wo"])
+        return S.psum_matmul(o.reshape(b, s, hq * hd), w["wo"], m, mesh)
 
     def _mlp(self, w, x):
         """The MoE, or the dense MLP split by columns and rows, then
@@ -375,7 +390,8 @@ class DecoderLM(nn.Module):
                             cache_len)
             else:
                 write_at = cache_len.reshape(1)
-        attn = self._attn_tp if self.n_model > 1 else self._attn
+        attn = self._attn_tp if self.n_model > 1 and not self._kv_sharded \
+            else self._attn
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
@@ -390,20 +406,24 @@ class DecoderLM(nn.Module):
     def _logits(self, x):
         x = self._norm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return S.vocab_logits(x, head, self.run.model_axis, self.mesh)
+        return S.vocab_logits(x, head, self.run.model_axis, self.mesh,
+                              self.cfg.vocab)
 
     # ------------------------------------------------------------- on a mesh
     def _local_heads(self):
-        """This rank's query heads ``[a, a + hl)`` and the KV heads they
-        read: a slice of the KV heads when the groups align with the split
-        (every config's case), else one KV head per query head (index)."""
+        """This rank's query heads ``[a, a + hl)`` (``hl = ceil(Hq / n)``),
+        how many of them are real (the rest pad), and the KV heads they
+        read: a slice of the KV heads when the groups align with the split,
+        else one KV head per query head (an index; a padding head reads
+        the last KV head)."""
         cfg = self.cfg
-        hl = cfg.n_heads // self.n_model
-        a = self.mesh.index(self.run.model_axis) * hl
+        hl, a, real = S.blocks_per_rank(cfg.n_heads, self.run.model_axis,
+                                        self.mesh)
         g = cfg.n_heads // cfg.n_kv_heads
-        if hl % g == 0 or g % hl == 0:
-            return a, hl, slice(a // g, (a + hl - 1) // g + 1)
-        return a, hl, torch.arange(a, a + hl, device=self.device) // g
+        if real == hl and (hl % g == 0 or g % hl == 0):
+            return a, hl, real, slice(a // g, (a + hl - 1) // g + 1)
+        heads = torch.arange(a, a + hl, device=self.device)
+        return a, hl, real, heads.clamp(max=cfg.n_heads - 1) // g
 
     @staticmethod
     def _pick(t, kv):
@@ -415,12 +435,13 @@ class DecoderLM(nn.Module):
                  attn_len=None):
         """``_attn`` at this rank's heads: column-split ``wq``, replicated
         ``wk``/``wv``, row-split ``wo`` and its ``psum``. The cache is this
-        rank's slice of the sequence."""
+        rank's slice of the sequence. A padding head's output is masked to
+        zeros (its ``wo`` rows are zero, but its gradient would not be)."""
         cfg, run, mesh = self.cfg, self.run, self.mesh
         m = run.model_axis
         b, s, _ = x.shape
         hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        a, hl, kv = self._local_heads()
+        a, hl, real, kv = self._local_heads()
         h = self._norm(x, w["ln1"])
         q = torch.matmul(S.copy_to(h, m, mesh), w["wq"]).reshape(b, s, hl, hd)
         k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
@@ -442,8 +463,12 @@ class DecoderLM(nn.Module):
             pos = write_at[1] if isinstance(write_at, tuple) else write_at
             if not isinstance(write_at, tuple) and self._use_sharded_decode():
                 o = decode_attention_seq_sharded(
-                    q, ck, cv, k, v, pos, model_axis=m,
-                    impl=run.attn_impl, mesh=mesh)[:, :, a:a + hl]
+                    q, ck, cv, k, v, pos, seq_axes=m, impl=run.attn_impl,
+                    mesh=mesh, n_heads=cfg.n_heads)
+                extra = hl * self.n_model - cfg.n_heads
+                if extra:
+                    o = torch.nn.functional.pad(o, (0, 0, 0, extra))
+                o = o[:, :, a:a + hl]
             else:
                 # the owner writes; attention over the gathered cache
                 start = mesh.index(m) * ck.shape[1]
@@ -453,13 +478,16 @@ class DecoderLM(nn.Module):
                     q, self._pick(S.all_gather(ck, m, 1, mesh), kv),
                     self._pick(S.all_gather(cv, m, 1, mesh), kv), attn_len,
                     impl=run.attn_impl)
+        if real < hl:
+            o = o * (torch.arange(hl, device=o.device) < real).to(
+                o.dtype)[:, None]
         return S.psum_matmul(o.reshape(b, s, hl * hd), w["wo"], m, mesh)
 
     def _use_sharded_decode(self) -> bool:
         """The explicit distributed flash-decode when the cache is
         sequence-sharded (few KV heads) over a model axis of several ranks."""
-        return (self.run.sharded_decode and self.cfg.n_kv_heads < 16
-                and self.n_model > 1)
+        return self.run.sharded_decode and self.n_model > 1 \
+            and not self._kv_sharded
 
     # ------------------------------------------------------------------ steps
     def forward(self, batch) -> torch.Tensor:

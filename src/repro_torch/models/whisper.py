@@ -40,7 +40,10 @@ ranks, the blocks run the tensor-parallel arithmetic GSPMD derives from
 those specs, the collectives written out (each carries its gradient):
 self and cross ``wq``/``wk``/``wv`` are split by columns, so K2 (causal,
 non-causal and cross) and K1 (the self cache, the ``encoder_seq``-long
-cross cache) run at the rank's ``H/n`` heads; ``wo`` and ``w_down`` are
+cross cache) run at the rank's ``ceil(H/n)`` heads (12 heads on 16 ranks
+are padded with 4 zero heads, ``sharding.Padded``: a third more attention
+work, on ranks 12-15 all of it padding; a padding head reads the cache's
+last head and its output is masked to zeros); ``wo`` and ``w_down`` are
 split by rows, then ``psum``; ``b_up`` is split with ``w_up``. The
 embedding and the logits stay replicated (the vocabulary, 51,865, is not
 divided by 4), and so are the caches (``cache_pspecs``): the new K/V heads
@@ -99,10 +102,12 @@ class WhisperModel(nn.Module):
             k: param(f"encoder.{k}") for k in self._enc_shapes()})
         self.decoder = nn.ParameterDict({
             k: param(f"decoder.{k}") for k in self._dec_shapes()})
-        # this rank's heads
-        hl = cfg.n_heads // self.n_model
-        i = 0 if self.mesh is None else self.mesh.index(self.run.model_axis)
-        self._mine = slice(i * hl, (i + 1) * hl)
+        # this rank's heads: a slice of the caches', or an index where some
+        # are padding (reading the last real head)
+        hl, a, self._real = S.blocks_per_rank(cfg.n_heads,
+                                              self.run.model_axis, self.mesh)
+        self._mine = slice(a, a + hl) if self._real == hl else \
+            torch.arange(a, a + hl).clamp(max=cfg.n_heads - 1)
 
     @property
     def device(self) -> torch.device:
@@ -152,12 +157,20 @@ class WhisperModel(nn.Module):
         name."""
         m = self.run.model_axis
 
+        cfg = self.cfg
+        heads = S.Padded(m, cfg.n_heads * cfg.resolved_head_dim,
+                         cfg.resolved_head_dim)
+
         def spec(k, shape):
             if len(shape) == 1:          # stacked 1-d parameters: ndim 2
                 return P(None, m) if k == "b_up" else P(None, None)
-            if k.endswith(("wq", "wk", "wv")) or k == "w_up":
+            if k.endswith(("wq", "wk", "wv")):
+                return P(None, None, heads)
+            if k.endswith("wo"):
+                return P(None, heads, None)
+            if k == "w_up":
                 return P(None, None, m)
-            if k.endswith("wo") or k == "w_down":
+            if k == "w_down":
                 return P(None, m, None)
             return P(None, None, None)
 
@@ -251,9 +264,21 @@ class WhisperModel(nn.Module):
         return S.copy_to(x, self.run.model_axis, self.mesh)
 
     def _out(self, o, wo):
-        """The row-parallel output projection, summed over the ranks."""
+        """The row-parallel output projection, summed over the ranks; a
+        padding head's output masked to zeros first (its ``wo`` rows are
+        zero, but its gradient would not be)."""
+        if self._real < o.shape[2]:
+            o = o * (torch.arange(o.shape[2], device=o.device)
+                     < self._real).to(o.dtype)[:, None]
         return S.psum_matmul(o.reshape(o.shape[0], o.shape[1], -1), wo,
                              self.run.model_axis, self.mesh)
+
+    def _my_heads(self, t):
+        """This rank's heads of a replicated cache (B, S, H, D), a
+        contiguous copy."""
+        if isinstance(self._mine, slice):
+            return t[:, :, self._mine].contiguous()
+        return t.index_select(2, self._mine.to(t.device))
 
     def _own(self, ck, cv, k, v, write_at=None):
         """Write this step's K/V heads into the replicated cache ``(ck,
@@ -262,7 +287,7 @@ class WhisperModel(nn.Module):
         contiguous copy on a mesh."""
         if self.n_model > 1:
             kv = S.all_gather(torch.stack([k, v]), self.run.model_axis, 3,
-                              self.mesh)
+                              self.mesh)[:, :, :, :self.cfg.n_heads]
             k, v = kv[0], kv[1]
         if write_at is None:
             ck.copy_(k)
@@ -272,8 +297,7 @@ class WhisperModel(nn.Module):
             cv.index_copy_(1, write_at, v)
         if self.n_model == 1:
             return ck, cv
-        return (ck[:, :, self._mine].contiguous(),
-                cv[:, :, self._mine].contiguous())
+        return self._my_heads(ck), self._my_heads(cv)
 
     def _self_attn(self, w, x, causal, cache_kv=None, write_at=None,
                    attn_len=None):
@@ -398,8 +422,7 @@ class WhisperModel(nn.Module):
                                 write_at=write_at, attn_len=attn_len)
             xk, xv = cache["xk"][i], cache["xv"][i]
             if self.n_model > 1:
-                xk, xv = xk[:, :, self._mine].contiguous(), \
-                    xv[:, :, self._mine].contiguous()
+                xk, xv = self._my_heads(xk), self._my_heads(xv)
             o = ops.decode_attention(self._cross_q(w, x), xk, xv, cross_len,
                                      impl=self.run.attn_impl)
             x = x + self._out(o, w["x_wo"])

@@ -250,10 +250,14 @@ def restore_checkpoint(path: str, step: Optional[int], like: Any,
             raise KeyError(f"{prefix}: not in the checkpoint of step {step}")
         dev = device if device is not None else (
             t.device if torch.is_tensor(t) else "cpu")
-        rec, index = records[prefix], None
-        if prefix in sharded:
-            sh = sharded[prefix]
-            index = S.local_slices(rec["shape"], sh.spec, sh.mesh, prefix)
-        return _load_leaf(ckpt_dir, rec, index).to(dev)
+        rec = records[prefix]
+        if prefix not in sharded:
+            return _load_leaf(ckpt_dir, rec, None).to(dev)
+        sh = sharded[prefix]
+        index = S.local_slices(rec["shape"], sh.spec, sh.mesh, prefix)
+        # the rank's slice, zero-padded where its spec pads the dimension
+        return S.padded_to(_load_leaf(ckpt_dir, rec, index).to(dev),
+                           S.local_shape(rec["shape"], sh.spec, sh.mesh,
+                                         prefix))
 
     return rebuild(like), manifest["step"]

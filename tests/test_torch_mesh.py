@@ -187,11 +187,18 @@ def test_fsdp_experts_match_jax(runs):
 
 
 def test_mesh_model_refuses_what_is_not_ported():
-    """smollm's 15 heads do not split over 4 ranks (GSPMD would pad:
-    ROADMAP A13d)."""
+    """smollm's 15 heads on 4 ranks are padded to 16, as GSPMD pads them
+    (4 a rank, the last rank's fourth a zero head); a KV-head split that
+    the model axis does not divide is refused."""
     from repro_torch.models.sharding import use_mesh
 
     cfg = get_config("smollm-360m")
-    with use_mesh(fake_mesh((1, 4), (0, 0))), pytest.raises(ValueError,
-                                             match="15 query heads"):
-        build_model(cfg, RunConfig(), device="meta")
+    with use_mesh(fake_mesh((1, 4), (0, 3))):
+        m = build_model(cfg, RunConfig(), device="meta")
+    assert m.layers["wq"].shape == (32, 960, 4 * 64)
+    assert m._local_heads()[:3] == (12, 4, 3)
+    wide = get_config("qwen3-32b").reduced(n_heads=36, n_kv_heads=18,
+                                           d_model=72)
+    with use_mesh(fake_mesh((1, 4), (0, 0))), pytest.raises(
+            ValueError, match="18 KV heads do not split"):
+        build_model(wide, RunConfig(), device="meta")

@@ -180,11 +180,21 @@ def test_cache_shapes_are_the_global_cache(name):
 
 def test_zamba2_batch_one_on_data_ranks_names_a13d():
     """A batch of 1 with data ranks above one takes the reference's
-    sequence-parallel KV cache: refused, naming the roadmap item, rather
-    than run replicated."""
+    sequence-parallel KV cache (ROADMAP A13d, done): its sequence split over
+    the data axis and its KV heads over the model axis, the SSD and conv
+    states replicated over the data axis. With a model axis of one rank the
+    layout is refused: its cache could not be told from a batch split one
+    row a rank."""
     cfg = get_config("zamba2-2.7b").reduced()
     with S.use_mesh(fake_mesh((2, 2), (1, 0))):
         m = build_model(cfg, RunConfig(data_axes=("data",)), device="meta")
-    with pytest.raises(ValueError, match="A13d"):
-        m.init_cache(ShapeSpec("long", 8, 1, "decode"))
+    one = m.init_cache(ShapeSpec("long", 8, 1, "decode"))
+    assert one["k"].shape == (1, 1, 4, cfg.n_kv_heads // 2,
+                              cfg.resolved_head_dim)
+    assert one["ssd"].shape[2] == 1
+    assert one["ssd"].shape[3] == m.n_ssm_heads // 2
     assert m.init_cache(ShapeSpec("d", 8, 2, "decode"))["k"].shape[1] == 1
+    with S.use_mesh(fake_mesh((2, 1), (1, 0))):
+        dp = build_model(cfg, RunConfig(data_axes=("data",)), device="meta")
+    with pytest.raises(ValueError, match="model axis of more than one"):
+        dp.init_cache(ShapeSpec("long", 8, 1, "decode"))

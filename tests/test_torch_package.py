@@ -87,7 +87,8 @@ need = {"repro_torch.kernels.ops", "repro_torch.kernels.build",
         "repro_torch.launch.train", "repro_torch.launch.serve",
         "repro_torch.launch.mesh", "repro_torch.models.sharding",
         "repro_torch.models.distributed_attention",
-        "repro_torch.launch.steps"}
+        "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+        "repro_torch.launch.roofline", "repro_torch.launch.collectives"}
 assert need <= set(names), need - set(names)
 from repro_torch.kernels import build
 assert build._lib is None            # nothing was built or loaded on import

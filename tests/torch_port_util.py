@@ -883,3 +883,280 @@ def port_mesh_families_job(rank, world, inputs, out):
             res[f"{name}|bf16|mesh"] = sharded.forward(batch)
     np.savez(f"{out}.{rank}.npz",
              **{k: v.float().numpy() for k, v in res.items()})
+
+
+# padded heads and vocabularies, the KV-head-sharded cache, Zamba2's
+# batch-1 cache on data ranks (tests/test_torch_mesh_pad.py) ---------------
+
+PAD_MESHES = ((1, 4), (2, 2))
+# smollm cut to 3 heads (padded to 4 on 4 ranks, 2 + 2 on 2) and a
+# vocabulary of 250 (padded to 252 on 4 ranks); qwen3 with 16 KV heads (the
+# reference's KV-head-sharded layout)
+PAD_CASES = {"pad": ("smollm-360m", dict(n_layers=2, d_model=48, n_heads=3,
+                                         n_kv_heads=1, d_ff=64, vocab=250)),
+             "kvs": ("qwen3-32b", dict(n_layers=2, d_model=64, n_heads=16,
+                                       n_kv_heads=16, d_ff=128, vocab=256))}
+PAD_B, PAD_S = 4, 16
+PAD_SMAX, PAD_START, PAD_STEPS = 16, 6, 4
+PAD_SLOT_LENS = [7, 9, 8, 11]
+ZB1_SMAX, ZB1_STEPS = 8, 6     # (2, 2): 4 positions a data rank, crossed at 4
+PAD_TRAIN_STEPS = 3
+
+
+def pad_cfg(key, jax_side=False):
+    if key == "zb1":
+        name, kw = "zamba2-2.7b", dict(n_layers=4)
+    else:
+        name, kw = PAD_CASES[key]
+    if jax_side:
+        from repro.configs import get_config
+    else:
+        from repro_torch.configs import get_config
+    return name, get_config(name).reduced(**kw)
+
+
+def pad_run(**kw):
+    return dict(q_chunk=8, kv_chunk=8, seq_chunk=8, data_axes=("data",),
+                **kw)
+
+
+def pad_inputs(path):
+    """Weights (the port's init at per-layer fan-in), tokens, labels and
+    seeded caches of the padded cases, saved as one .npz both sides read."""
+    from repro_torch.models.api import RunConfig, build_model
+    out = {}
+    for i, key in enumerate(("pad", "kvs", "zb1")):
+        _, cfg = pad_cfg(key)
+        m = build_model(cfg, RunConfig(), device="cpu")
+        m.init_params(torch.Generator().manual_seed(200 + i),
+                      layer_fan_in=True)
+        out.update({f"{key}|{k}": v.numpy() for k, v in m.state_dict().items()})
+        if key != "zb1":
+            cache = np.zeros((2, cfg.n_layers, PAD_B, PAD_SMAX,
+                              cfg.n_kv_heads, cfg.resolved_head_dim))
+            cache[:, :, :, :PAD_START] = np.random.default_rng(i).normal(
+                size=cache[:, :, :, :PAD_START].shape)
+            out[f"{key}|cache"] = cache
+    rng = np.random.default_rng(9)
+    out["tokens"] = rng.integers(0, 250, (PAD_B, PAD_S))
+    out["labels"] = rng.integers(0, 250, (PAD_B, PAD_S))
+    np.savez(path, **{k: np.asarray(v, np.float32 if v.dtype.kind == "f"
+                                     else np.int32) for k, v in out.items()})
+
+
+def pad_tree(z, key):
+    from repro_torch.convert import unflatten_tree
+    return unflatten_tree({k.split("|", 1)[1]: z[k] for k in z.files
+                           if k.startswith(key + "|") and k != key + "|cache"})
+
+
+def jax_mesh_pad_main(inputs, out):
+    """The reference's side of tests/test_torch_mesh_pad.py on 4 fake
+    devices: forward and decode of the padded and KV-head-sharded cases on
+    (1, 4) and (2, 2), each parameter laid out by its spec (a leaf whose
+    dimension the mesh does not divide, the vocabulary of 250 on 4,
+    replicated: GSPMD pads what it partitions itself); Zamba2's batch-1
+    decode on (2, 2) through its own ``build_step``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec
+    from repro.configs import ShapeSpec
+    from repro.launch.steps import _shard, build_step
+    from repro.models.api import RunConfig, build_model
+    from repro.models.sharding import compat_make_mesh, use_mesh
+    z = np.load(inputs)
+    res = {}
+    tokens = z["tokens"]
+    for mshape in PAD_MESHES:
+        mesh = compat_make_mesh(mshape, ("data", "model"))
+        tag = f"{mshape[0]}x{mshape[1]}"
+        for key in ("pad", "kvs"):
+            _, cfg = pad_cfg(key, jax_side=True)
+            params = jax.tree.map(jnp.asarray, pad_tree(z, key))
+            with use_mesh(mesh):
+                m = build_model(cfg, RunConfig(**pad_run(sharded_decode=True)))
+                shards = _shard(mesh, m.param_pspecs())
+
+                def fit(sh, a):
+                    ok = all(n % (mesh.shape[e] if isinstance(e, str) else 1)
+                             == 0 for n, e in zip(a.shape, sh.spec))
+                    return sh if ok else NamedSharding(mesh, PartitionSpec())
+                shards = jax.tree.map(fit, shards, params)
+                pshape = ShapeSpec("p", PAD_S, PAD_B, "prefill")
+                res[f"{key}|{tag}|fwd"] = jax.jit(m.forward, in_shardings=(
+                    shards, _shard(mesh, m.input_pspecs(pshape))))(
+                    params, {"tokens": jnp.asarray(tokens)})
+                dshape = ShapeSpec("d", PAD_SMAX, PAD_B, "decode")
+                step = jax.jit(m.decode_step, in_shardings=(
+                    shards, _shard(mesh, m.cache_pspecs(dshape)),
+                    _shard(mesh, m.input_pspecs(dshape))))
+                cache = {"k": jnp.asarray(z[f"{key}|cache"][0]),
+                         "v": jnp.asarray(z[f"{key}|cache"][1])}
+                for t in range(PAD_STEPS):
+                    res[f"{key}|{tag}|dec{t}"], cache = step(params, cache, {
+                        "tokens": jnp.asarray(tokens[:, t:t + 1]),
+                        "cache_len": jnp.asarray(PAD_START + t, jnp.int32)})
+                res[f"{key}|{tag}|slot"], _ = step(params, cache, {
+                    "tokens": jnp.asarray(tokens[:, :1]),
+                    "cache_len": jnp.asarray(PAD_SLOT_LENS, jnp.int32)})
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    _, cfg = pad_cfg("zb1", jax_side=True)
+    run = RunConfig(**pad_run())
+    fn, _, _ = build_step("zamba2-2.7b", "long_500k", mesh, run_cfg=run,
+                          cfg_override=cfg)
+    with use_mesh(mesh):
+        m = build_model(cfg, run)
+    cache = m.init_cache(ShapeSpec("d", ZB1_SMAX, 1, "decode"))
+    params = jax.tree.map(jnp.asarray, pad_tree(z, "zb1"))
+    with use_mesh(mesh):
+        for t in range(ZB1_STEPS):
+            res[f"zb1|dec{t}"], cache = fn(params, cache, {
+                "tokens": jnp.asarray(tokens[:1, t:t + 1]),
+                "cache_len": jnp.asarray(t, jnp.int32)})
+    np.savez(out, **{k: np.asarray(v, np.float32) for k, v in res.items()})
+    print("jax mesh pad ok")
+
+
+def padding_of(t, full_shape, spec, mesh):
+    """The entries of a rank's ``t`` that pad its slice of ``full_shape``
+    (zero-size when nothing pads)."""
+    from repro_torch.models import sharding as S
+    real = torch.zeros(t.shape, dtype=torch.bool)
+    real[tuple(slice(0, s.stop - s.start)
+               for s in S.local_slices(full_shape, spec, mesh))] = True
+    return t.detach()[~real]
+
+
+def port_mesh_pad_job(rank, world, inputs, out, ckpt):
+    """The port's side of tests/test_torch_mesh_pad.py, one rank of 4 gloo
+    CPU ranks: the reference's cases on (1, 4) and (2, 2), the padded
+    smollm's AdamW steps (ZeRO-1 on (2, 2)) and its checkpoint from (1, 4),
+    restored onto (2, 2); rank 0 also runs every case on one device."""
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import RunConfig, build_model
+    from repro_torch.train.checkpoint import (named_shardings,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.models.sharding import P
+    torch.set_num_threads(1)
+    z = np.load(inputs)
+    res = {}
+    tokens = torch.from_numpy(z["tokens"])
+    batch = {"tokens": tokens, "labels": torch.from_numpy(z["labels"])}
+
+    def lm_cases(tag, mesh):
+        for key in ("pad", "kvs"):
+            _, cfg = pad_cfg(key)
+            with S.use_mesh(mesh):
+                m = build_model(cfg, RunConfig(**pad_run(
+                    sharded_decode=True)), device="cpu")
+            convert.load_params(m, pad_tree(z, key))
+            rows = P(("data",), None) if mesh is not None else P()
+            toks = tokens if mesh is None else S.local_shard(tokens, rows,
+                                                             mesh)
+            with torch.no_grad():
+                res[f"{key}|{tag}|fwd"] = m.forward({"tokens": toks})
+                dshape = ShapeSpec("d", PAD_SMAX, PAD_B, "decode")
+                cache = {}
+                for i, kv in enumerate("kv"):
+                    full = torch.from_numpy(z[f"{key}|cache"][i])
+                    cache[kv] = full.clone() if mesh is None else \
+                        S.local_shard(full, m.cache_pspecs(dshape)[kv],
+                                      mesh).contiguous()
+                for t in range(PAD_STEPS):
+                    res[f"{key}|{tag}|dec{t}"], cache = m.decode_step(cache, {
+                        "tokens": toks[:, t:t + 1],
+                        "cache_len": torch.tensor(PAD_START + t)})
+                lens = torch.tensor(PAD_SLOT_LENS)
+                res[f"{key}|{tag}|slot"], _ = m.decode_step(cache, {
+                    "tokens": toks[:, :1], "cache_len": lens if mesh is None
+                    else S.local_shard(lens, P(("data",)), mesh)})
+
+    for mshape in PAD_MESHES:
+        lm_cases(f"{mshape[0]}x{mshape[1]}",
+                 S.make_mesh(mshape, ("data", "model"), "cpu"))
+    if rank == 0:
+        lm_cases("one", None)
+    # Zamba2's batch-1 cache: sequence over data, heads over model
+    mesh = S.make_mesh((2, 2), ("data", "model"), "cpu")
+    _, zcfg = pad_cfg("zb1")
+    run = RunConfig(**pad_run())
+    for tag, zmesh in (("2x2", mesh), ("one", None)):
+        if zmesh is None and rank:
+            continue
+        if zmesh is None:
+            m = build_model(zcfg, run, device="cpu")
+            fn = None
+        else:
+            fn, _, meta = build_step("zamba2-2.7b", "long_500k", zmesh,
+                                     run_cfg=run, cfg_override=zcfg)
+            m = meta["model"]
+        convert.load_params(m, pad_tree(z, "zb1"))
+        cache = m.init_cache(ShapeSpec("d", ZB1_SMAX, 1, "decode"))
+        with torch.no_grad():
+            for t in range(ZB1_STEPS):
+                b = {"tokens": tokens[:1, t:t + 1],
+                     "cache_len": torch.tensor(t)}
+                res[f"zb1|{tag}|dec{t}"], cache = (
+                    m.decode_step(cache, b) if fn is None else fn(cache, b))
+        if zmesh is not None:
+            res["zb1|k_local"] = torch.tensor(list(cache["k"].shape))
+    # the padded smollm trains: the padding stays 0 (ZeRO-1 on (2, 2))
+    _, pcfg = pad_cfg("pad")
+    for mshape, over in (((1, 4), {}), ((2, 2), {"use_zero1": True})):
+        mesh = S.make_mesh(mshape, ("data", "model"), "cpu")
+        tag = f"{mshape[0]}x{mshape[1]}"
+        fn, _, meta = build_step("smollm-360m", "train_4k", mesh, lr=MF_LR,
+                                 cfg_override=pcfg, run_cfg=RunConfig(
+                                     attn_impl="plain", **pad_run(**over)))
+        model = meta["model"]
+        convert.load_params(model, pad_tree(z, "pad"))
+        specs, full = model.param_pspecs(), model.param_shapes()
+        pads = [padding_of(p, full[k][0], specs[k], mesh)
+                for k, p in model.named_parameters()]
+        res[f"train|{tag}|padded"] = torch.tensor(
+            float(sum(t.numel() for t in pads)))
+        res[f"train|{tag}|zero_at_load"] = torch.tensor(
+            float(all(bool((t == 0).all()) for t in pads)))
+        if tag == "1x4":
+            save_checkpoint(ckpt, 0, dict(model.named_parameters()),
+                            shardings=named_shardings(specs, mesh))
+        opt = meta["init_opt"]()
+        for s in range(PAD_TRAIN_STEPS):
+            opt, metrics = fn(opt, batch, None)
+            res[f"train|{tag}|loss{s}"] = metrics["loss"]
+        pads = [padding_of(p, full[k][0], specs[k], mesh)
+                for k, p in model.named_parameters()]
+        res[f"train|{tag}|zero_after"] = torch.tensor(
+            float(all(bool((t == 0).all()) for t in pads)))
+        res.update({f"train|{tag}|p|{k}": S.gather(p.detach(), specs[k], mesh)
+                    for k, p in model.named_parameters()})
+    if rank == 0:
+        m = build_model(pcfg, RunConfig(attn_impl="plain", **pad_run()),
+                        device="cpu")
+        convert.load_params(m, pad_tree(z, "pad"))
+        step = make_train_step(m, lr=MF_LR)
+        opt = adamw_init(dict(m.named_parameters()))
+        for s in range(PAD_TRAIN_STEPS):
+            opt, metrics = step(opt, batch, None)
+            res[f"train|one|loss{s}"] = metrics["loss"]
+        res.update({f"train|one|p|{k}": p.detach()
+                    for k, p in m.named_parameters()})
+    # the (1, 4) checkpoint restored onto (2, 2): every rank's padded shard
+    mesh = S.make_mesh((2, 2), ("data", "model"), "cpu")
+    with S.use_mesh(mesh):
+        m = build_model(pcfg, RunConfig(**pad_run()), device="cpu")
+    specs = m.param_pspecs()
+    got, _ = restore_checkpoint(ckpt, 0, dict(m.state_dict()),
+                                shardings=named_shardings(specs, mesh))
+    res["restore_2x2_equal"] = torch.tensor(float(all(
+        torch.equal(got[k], S.local_shard(torch.from_numpy(
+            z[f"pad|{k}"]), specs[k], mesh)) for k in got)))
+    np.savez(f"{out}.{rank}.npz",
+             **{k: torch.as_tensor(v).detach().float().numpy()
+                for k, v in res.items()})
