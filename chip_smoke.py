@@ -28,12 +28,24 @@ JSON line:
            aligned (element copies); their rows carry the bound of the
            arithmetic they run (three TF32 products at 495 TFLOP/s) beside
            the fp32 one, and ``ms`` three times (``ms``, ``ms_again``,
-           ``ms_third``) for the spread
+           ``ms_third``) for the spread; the grouped GEMM (the MoE's
+           ``lax.ragged_dot``) at arctic-480b's and kimi-k2's decode steps
+           and arctic's prefill, fp32 and bf16, at empty groups, one group,
+           rows past the last group (exactly 0) and eager against graph
+           replay, ``torch._grouped_mm`` timed beside it
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
-then ten paths, each driven with the launch counters zeroed just before
-it and read just after it (as every path below is):
+then eleven paths, each driven with the launch counters zeroed just
+before it and read just after it (as every path below is). Every
+``Replica`` decodes by replaying the CUDA graph of its decode step that
+``ExecutableCache.warm`` captured (two eager warm-up steps, the last under
+CUDA's sync debug mode "error", then the capture); a serve path checks
+that every replica it created was captured, counts launches as the eager
+warm-up steps plus the replays (a replay adds what its capture counted),
+and its ``steady_state`` holds the captured step against ``decode_step``
+run eagerly on a copy of the same cache (logits and cache bit for bit),
+beside the eager step's time and host syncs:
 
   smollm-360m  model: full-width prefill forward (flash-attention kernel)
                against token-by-token decode (flash-decode kernel) and
@@ -51,14 +63,22 @@ it and read just after it (as every path below is):
                flash-attention kernels at head_dim 80, decode on the
                flash-decode kernel), the Mamba matrices drawn at their
                per-layer fan-in; generate: Replica.generate twice on the
-               same weights, equal greedy tokens
+               same weights through the captured batch-1 step, equal greedy
+               tokens, one more step against the eager one
   arctic-480b  the MoE family (128 experts, top-2, dense residual) at full
                width, depth cut to what 80 GB holds (printed in each line):
                model legs (bf16 at depth 2, fp32 at depth 1) on K2 and K1 at
-               head_dim 128 with 56/8 heads, the plain twin sharing the
-               kernel model's tensors; serve: the smollm traffic through the
-               same path into one replica at a time (max_scale 1), the probe
-               against a solo replica built after the backend is gone
+               head_dim 128 with 56/8 heads and the grouped GEMM, the plain
+               twin (the loop over the groups) sharing the kernel model's
+               tensors; serve: the smollm traffic through the same path
+               into one replica at a time (max_scale 1), the probe against
+               a solo replica built after the backend is gone
+  kimi-k2-1t-a32b
+               the MoE family at 384 experts, top-8, 64/8 heads, vocab
+               163840, at full width and depth 1 in bf16 (38.8 GB; fp32
+               would not fit): the bf16 model leg and the serve leg as
+               arctic's, the grouped GEMM at 384 experts and C = 64 in
+               every captured step
   qwen2-vl-72b the vlm family (M-RoPE, text-only positions) at full width:
                model legs, bf16 at depth 8 and fp32 at depth 2
   smollm-360m/container
@@ -67,7 +87,7 @@ it and read just after it (as every path below is):
                fresh build directory by the first (cold) creation and loaded
                by the later (warm) ones; every request's tokens against an
                in-process replica with its sandbox's seed, which runs (and
-               counts) the flash-decode kernel
+               counts) the flash-decode kernel through its captured step
   whisper-small
                the audio family at full width and depth (12 + 12 layers,
                1500 frames drawn on the card, batch 2, weights at the
@@ -93,7 +113,7 @@ it and read just after it (as every path below is):
                one train step at full width (bf16): finite loss, grad norm
                above 0, parameters moved; its kernel counters must read 0
   launch/serve the serve launcher (24 requests, 4 workers, the reduced
-               model) at 40 requests a virtual second: every request ok,
+               model) at 400 requests a virtual second: every request ok,
                each one's tokens equal to a solo replica of the sandbox it
                was admitted to
 
@@ -908,6 +928,104 @@ def check_decode_lse(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
     return rec
 
 
+def moe_group_sizes(T, k, E, seed):
+    """The group sizes a router's top-k gives T tokens over E experts (each
+    token picks k distinct experts; uniform draws from the seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = np.zeros(E, np.int64)
+    for _ in range(T):
+        sizes[rng.choice(E, k, replace=False)] += 1
+    return sizes.tolist()
+
+
+def grouped_library(x, w, gs):
+    """``torch._grouped_mm`` on the same rows (bf16, offsets on the
+    device): the library yardstick, used nowhere in the port."""
+    return torch._grouped_mm(x, w, offs=torch.cumsum(gs, 0,
+                                                     dtype=torch.int32))
+
+
+def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
+                  graph=False):
+    """The grouped GEMM (``lax.ragged_dot``) against its plain version, the
+    loop over the groups. With ``timed``, ``ms`` is device time (a graph of
+    the kernel's launches), ``eager_ms`` the kernel called from Python, and
+    ``plain_ms`` the plain version called from Python: it reads the sizes on
+    the host, so it cannot be captured, and its time includes that wait.
+    The weights are 1-9 GB, far past L2, so every launch reads them cold as
+    the model's does. ``graph``: two eager calls and two graph replays
+    bit-equal."""
+    from repro_torch.kernels.grouped_gemm import (grouped_matmul,
+                                                  grouped_matmul_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    x = torch.randn((C, K), generator=g, device="cuda", dtype=dtype)
+    w = torch.randn((E, K, N), generator=g, device="cuda", dtype=dtype)
+    w.mul_(K ** -0.5)
+    gs = torch.tensor(sizes, dtype=torch.int64, device="cuda")
+    got = grouped_matmul(x, w, gs)
+    want = grouped_matmul_plain(x, w, gs)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    rows = int(sum(sizes))
+    rec = {"case": name, "kernel": "grouped_matmul",
+           "shape": {"C": C, "K": K, "N": N, "E": E},
+           "dtype": dt_name(dtype), "rows": rows,
+           "active_experts": sum(1 for n in sizes if n),
+           "max_abs_err": err, "tol": KERNEL_TOL[dtype],
+           "rows_past_last_group_zero": bool((got[rows:] == 0).all())}
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: not finite")
+    require(err <= KERNEL_TOL[dtype],
+            f"{name}: max_abs_err {err} > {KERNEL_TOL[dtype]}")
+    require(rec["rows_past_last_group_zero"],
+            f"{name}: rows past the last group are not 0")
+    if graph:
+        outs = [grouped_matmul(x, w, gs).clone() for _ in range(2)]
+        torch.cuda.synchronize()
+        cg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cg):
+            static = grouped_matmul(x, w, gs)
+        for _ in range(2):
+            cg.replay()
+            torch.cuda.synchronize()
+            outs.append(static.clone())
+        rec["eager_eager_graph_graph_bit_equal"] = [
+            bool(torch.equal(outs[0], o)) for o in outs]
+        require(all(rec["eager_eager_graph_graph_bit_equal"]),
+                f"{name}: eager and replayed outputs differ")
+    if timed:
+        item = x.element_size()
+        nbytes = (rec["active_experts"] * K * N + C * K + C * N) * item \
+            + E * 8
+        flops = 2.0 * rows * K * N
+        rec.update(ms=device_ms(lambda: grouped_matmul(x, w, gs)),
+                   eager_ms=time_ms(lambda: grouped_matmul(x, w, gs)),
+                   plain_ms=time_ms(lambda: grouped_matmul_plain(x, w, gs),
+                                    reps=5, warmup=1),
+                   **bound(nbytes, flops, PEAK_FLOPS[dtype]))
+        rec["ms_again"] = device_ms(lambda: grouped_matmul(x, w, gs))
+        rec["library_ms"] = rec["library_error"] = None
+        if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+            try:
+                lib = grouped_library(x, w, gs)
+                torch.cuda.synchronize()
+                rec["library_max_abs_err"] = max_abs_err(lib[:rows],
+                                                         want[:rows])
+                rec["library_ms"] = device_ms(
+                    lambda: grouped_library(x, w, gs))
+            except Exception as e:   # the yardstick only: record why not
+                rec["library_error"] = repr(e)[:300]
+        elif dtype != torch.bfloat16:
+            rec["library_error"] = "torch._grouped_mm takes bf16 only"
+        else:
+            rec["library_error"] = "this torch has no torch._grouped_mm"
+    del x, w, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels() -> dict:
     """Returns the timed main-path records, by kernel name."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1145,6 +1263,40 @@ def phase_kernels() -> dict:
         check_recurrence_graph("ssd/graph-replay/fp32", "ssd"),
         check_ssd("ssd/misaligned/fp32", 2, 128, 6, 64, 64, 32, f32, False,
                   misaligned=True),
+        # the grouped GEMM (lax.ragged_dot) at the MoE decode steps the
+        # serve paths capture (8 slots: arctic-480b C = 16 rows over 128
+        # experts, gate/up 7168 -> 4864 and down 4864 -> 7168; kimi-k2 C =
+        # 64 over 384, 7168 -> 2048 -> 7168), at arctic's 256-token
+        # prefill (C = 512), and at the edges: empty groups, every row in
+        # one group, rows past the last group, C a multiple of no tile, N a
+        # partial column tile; eager against graph replay
+        check_grouped("grouped/arctic-decode-gate/bf16", 16, 7168, 4864, 128,
+                      moe_group_sizes(8, 2, 128, SEED), bf16, timed=True,
+                      graph=True),
+        check_grouped("grouped/arctic-decode-down/bf16", 16, 4864, 7168, 128,
+                      moe_group_sizes(8, 2, 128, SEED), bf16, timed=True),
+        check_grouped("grouped/arctic-decode-gate/fp32", 16, 7168, 4864, 128,
+                      moe_group_sizes(8, 2, 128, SEED), f32, timed=True),
+        check_grouped("grouped/kimi-decode-gate/bf16", 64, 7168, 2048, 384,
+                      moe_group_sizes(8, 8, 384, SEED), bf16, timed=True,
+                      graph=True),
+        check_grouped("grouped/kimi-decode-down/bf16", 64, 2048, 7168, 384,
+                      moe_group_sizes(8, 8, 384, SEED), bf16, timed=True),
+        check_grouped("grouped/kimi-decode-gate/fp32", 64, 7168, 2048, 384,
+                      moe_group_sizes(8, 8, 384, SEED), f32),
+        check_grouped("grouped/arctic-prefill-gate/bf16", 512, 7168, 4864,
+                      128, moe_group_sizes(256, 2, 128, SEED), bf16,
+                      timed=True),
+        *[c for dt in (f32, bf16) for c in (
+            check_grouped(f"grouped/empty-groups/{dt_name(dt)}", 37, 100, 40,
+                          6, [0, 5, 0, 20, 0, 0], dt),
+            check_grouped(f"grouped/one-group/{dt_name(dt)}", 37, 100, 40, 5,
+                          [0, 0, 37, 0, 0], dt),
+            check_grouped(f"grouped/rows-past-last/{dt_name(dt)}", 45, 129,
+                          264, 4, [3, 0, 9, 1], dt, graph=True),
+            check_grouped(f"grouped/all-empty/{dt_name(dt)}", 9, 64, 16, 3,
+                          [0, 0, 0], dt),
+        )],
     ]
     emit("kernels", cases=cases)
     emit("designs", steps=[time_designs("ssd", SSD_DESIGNS),
@@ -1153,7 +1305,8 @@ def phase_kernels() -> dict:
     return {"decode_attention": by_case["decode/main/bf16"],
             "flash_attention": by_case["flash/main/bf16"],
             "wkv6": by_case["wkv6/main/bf16"],
-            "ssd": by_case["ssd/main/fp32"]}
+            "ssd": by_case["ssd/main/fp32"],
+            "grouped_matmul": by_case["grouped/arctic-decode-gate/bf16"]}
 
 
 # -- phase: model ---------------------------------------------------------------
@@ -1256,7 +1409,8 @@ FP32_TOL, BF16_TOL = 2e-3, 0.5
 def phase_model(cfg, fp32_depth, bf16_depth=None, init_kw=None,
                 **run_kw) -> None:
     """The ``model`` legs of one configuration, both at full width: fp32 at
-    ``fp32_depth`` layers, bf16 at ``bf16_depth`` (full depth when None).
+    ``fp32_depth`` layers (no fp32 leg when None), bf16 at ``bf16_depth``
+    (full depth when None).
     ``run_kw`` goes into both RunConfigs (the recurrences' ``seq_chunk``),
     ``init_kw`` into ``init_params``."""
     from dataclasses import replace
@@ -1267,11 +1421,13 @@ def phase_model(cfg, fp32_depth, bf16_depth=None, init_kw=None,
     run_kernel = RunConfig(attn_impl="kernel", **run_kw)
     run_plain = RunConfig(attn_impl="plain", **run_kw)
     bf16_depth = bf16_depth or cfg.n_layers
-    legs = [prefill_vs_decode(
-        replace(cfg, n_layers=fp32_depth, dtype="float32"), run_kernel,
-        run_plain, prompt_len=256, tol=FP32_TOL,
-        label=f"fp32-depth{fp32_depth}", init_kw=init_kw,
-        full_depth=cfg.n_layers)]
+    legs = []
+    if fp32_depth is not None:
+        legs.append(prefill_vs_decode(
+            replace(cfg, n_layers=fp32_depth, dtype="float32"), run_kernel,
+            run_plain, prompt_len=256, tol=FP32_TOL,
+            label=f"fp32-depth{fp32_depth}", init_kw=init_kw,
+            full_depth=cfg.n_layers))
     legs.append(prefill_vs_decode(
         replace(cfg, n_layers=bf16_depth), run_kernel, run_plain,
         prompt_len=256, tol=BF16_TOL,
@@ -1313,19 +1469,54 @@ def kernel_rows(prof) -> list:
     return rows
 
 
+def captured_vs_eager(exe, tokens, lens) -> dict:
+    """One more step of the executable ``exe`` (a graph replay) against
+    ``decode_step`` run eagerly on a copy of the same cache with the same
+    inputs: the logits and the caches after, compared bit for bit."""
+    from repro_torch.models import layers as L
+
+    with torch.inference_mode():
+        copy = {k: v.clone() for k, v in exe.cache.items()}
+        got = exe(tokens, lens).clone()
+        with L.lengths_checked():
+            want, copy = exe.model.decode_step(copy, {
+                "tokens": exe.tokens.clone(),
+                "cache_len": exe.cache_len.clone()})
+        torch.cuda.synchronize()
+        rec = {"logits_bit_equal": bool(torch.equal(got, want)),
+               "caches_bit_equal": all(torch.equal(copy[k], exe.cache[k])
+                                       for k in copy),
+               "max_abs_err": max_abs_err(got, want)}
+    require(bool(torch.isfinite(got.float()).all()),
+            "captured logits not finite")
+    # the same kernels on the same inputs: a replay is bit-equal to the
+    # eager step (every path so far), so any difference is a fault
+    require(rec["logits_bit_equal"] and rec["caches_bit_equal"],
+            f"captured and eager steps differ: {rec}")
+    del copy
+    return rec
+
+
 def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     """Steady state of one replica with every slot busy: wall time per
-    lockstep decode step, the host's waits for the device per step, and
-    from ``torch.profiler`` the share of that wall time during which the
-    device ran a kernel, with the kernels that took most of it. Device
-    numbers are None when the profiler saw no device activity (they are
-    then not measured, not zero)."""
+    lockstep decode step (each a replay of the replica's captured graph),
+    the host's waits for the device per step, and from ``torch.profiler``
+    the share of that wall time during which the device ran a kernel, with
+    the kernels that took most of it. Device numbers are None when the
+    profiler saw no device activity (they are then not measured, not
+    zero). Beside it the eager step: ``decode_step`` called directly on a
+    copy of the cache with the last step's inputs, and the argmax read, as
+    the batcher stepped before the capture; and one captured step against
+    the eager one on the same cache (``captured_vs_eager``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ContinuousBatcher, Replica
 
     rep = Replica(cfg, rng_seed=0, max_seq=MAX_SEQ, exec_cache=cache)
     cb = ContinuousBatcher(rep, max_slots=MAX_SLOTS)
+    exe = rep.executable(MAX_SLOTS)
+    require(exe.graph is not None and cb.cache is exe.cache,
+            f"{cfg.name}: the batcher does not step a captured graph")
     for p in prompts[:MAX_SLOTS]:
         cb.add_request(p, max_new=MAX_NEW)
     for _ in range(4):
@@ -1346,10 +1537,38 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     syncs = host_syncs(lambda: [cb.step() for _ in range(2)])
     rows = kernel_rows(prof)
     busy_us = sum(r[1] for r in rows)
+
+    tok = exe.tokens.cpu().numpy()
+    lens = exe.cache_len.cpu().numpy()
+    with torch.inference_mode():
+        copy = {k: v.clone() for k, v in exe.cache.items()}
+
+        def eager_step():
+            logits, _ = rep.model.decode_step(copy, {
+                "tokens": torch.from_numpy(tok),
+                "cache_len": torch.from_numpy(lens)})
+            torch.argmax(logits, dim=-1).cpu()
+
+        eager_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eager_step()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / n_steps * 1e3
+        eager_syncs = host_syncs(lambda: [eager_step() for _ in range(2)])
+        del copy
+    check = captured_vs_eager(exe, tok, lens + 1)
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
            "ms_per_step": step_ms, "ms_per_step_traced": traced_ms,
            "tokens_per_s": MAX_SLOTS / step_ms * 1e3,
            "host_syncs_per_step": None if syncs is None else syncs / 2,
+           "eager_ms_per_step": eager_ms,
+           "eager_host_syncs_per_step":
+               None if eager_syncs is None else eager_syncs / 2,
+           "capture_s": exe.capture_s,
+           "launches_per_replay": exe.replay_counts,
+           "captured_vs_eager": check,
            "device_busy_ms_per_step": None, "device_busy_share": None,
            "top_device_kernels": None}
     if busy_us > 0:
@@ -1471,6 +1690,14 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
             self.admitted = {}
             self.slots_used = set()
             self.retired_steps = 0
+            self.captured = []
+
+        def create_hook(self, sandbox):
+            super().create_hook(sandbox)
+            rt = self.sandboxes[sandbox.sandbox_id]
+            exe = rt.replica.executable(MAX_SLOTS)
+            self.captured.append(exe.graph is not None
+                                 and rt.batcher.cache is exe.cache)
 
         def admit(self, sandbox_id, req):
             rt = self.sandboxes.get(sandbox_id)
@@ -1503,6 +1730,7 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
     prompts = serve_prompts(cfg)
     before = ops.launch_counts()
     warmed_before = cache.compiled_executables()
+    warm_steps_before = cache.warm_steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     invs = invoke_all(env, cluster, prompts)
@@ -1513,15 +1741,28 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
     require(lb.batched_invokes > 0, "no invocation shared a decode step")
     steps = lb.decode_steps()
     warmed = cache.compiled_executables() - warmed_before
+    warm_steps = cache.warm_steps - warm_steps_before
     moved = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    require(lb.captured and all(lb.captured),
+            f"a replica does not decode through a captured graph: "
+            f"{lb.captured}")
+    # every batcher step is a replay, which adds what its capture counted;
+    # the eager warm-up steps before each capture count as they run
     if cfg.family == "ssm":
         # the recurrent decode step is plain arithmetic: no kernel
         require(not any(moved.values()),
                 f"kernel launches on the recurrent decode path: {moved}")
     else:
-        require(moved["decode_attention"] == (steps + warmed) * cfg.n_layers,
+        require(moved["decode_attention"]
+                == (steps + warm_steps) * cfg.n_layers,
                 f"decode kernel launches {moved['decode_attention']} != "
-                f"(steps {steps} + warm-up steps {warmed}) x layers "
+                f"(replays {steps} + warm-up steps {warm_steps}) x layers "
+                f"{cfg.n_layers}")
+    if cfg.family == "moe":
+        require(moved["grouped_matmul"]
+                == 3 * (steps + warm_steps) * cfg.n_layers,
+                f"grouped GEMM launches {moved['grouped_matmul']} != 3 x "
+                f"(replays {steps} + warm-up steps {warm_steps}) x layers "
                 f"{cfg.n_layers}")
     reuse_count = sum(1 for i in invs
                       if lb.admitted[id(i.request)]["steps_before"] > 0)
@@ -1569,7 +1810,9 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
         create_cold_s=colds, create_warm_s=warms, **wall_percentiles(invs),
         invoke_seconds_total=invoke_s, tokens_total=tokens_total,
         tokens_per_s=tokens_total / wall, wall_s=wall, decode_steps=steps,
-        warm_steps=warmed, ms_per_decode_step=invoke_s / max(steps, 1) * 1e3,
+        warmed_signatures=warmed, warm_steps=warm_steps,
+        captured_replicas=len(lb.captured),
+        ms_per_decode_step=invoke_s / max(steps, 1) * 1e3,
         batched_invokes=lb.batched_invokes, kernel_launches=moved,
         teardowns=lb.teardowns, exec_cache=stats,
         admitted_after_steps=reuse_count,
@@ -1589,6 +1832,8 @@ def phase_container(cfg, process_serve: dict) -> None:
     batched likewise, whose flash-decode launches are counted here."""
     import shutil
     import tempfile
+
+    import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.live import LiveFunctionSpec
@@ -1627,11 +1872,14 @@ def phase_container(cfg, process_serve: dict) -> None:
         by_sandbox.setdefault(lb.sandbox_of[id(inv.request)], []).append(
             (prompt, inv.request.tokens))
     before = ops.launch_counts()
-    steps = 0
+    steps = warm_steps = 0
+    check = None
     for sid, reqs in sorted(by_sandbox.items()):
-        rep = Replica(cfg, rng_seed=sid, max_seq=MAX_SEQ,
-                      exec_cache=ExecutableCache())
+        cache = ExecutableCache()
+        rep = Replica(cfg, rng_seed=sid, max_seq=MAX_SEQ, exec_cache=cache)
         cb = ContinuousBatcher(rep, max_slots=MAX_SLOTS)
+        require(rep.executable(MAX_SLOTS).graph is not None,
+                "the in-process replica's step is not a captured graph")
         for w in range(0, len(reqs), MAX_SLOTS):
             wave = reqs[w:w + MAX_SLOTS]
             rids = [cb.add_request(p, max_new=MAX_NEW) for p, _ in wave]
@@ -1641,11 +1889,22 @@ def phase_container(cfg, process_serve: dict) -> None:
                         f"sandbox {sid}: container tokens {toks} != "
                         f"in-process {cb.finished[rid]}")
         steps += cb.steps
+        warm_steps += cache.warm_steps
         del rep, cb
     moved = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    require(moved["decode_attention"] == steps * cfg.n_layers,
+    require(moved["decode_attention"] == (steps + warm_steps) * cfg.n_layers,
             f"in-process decode kernel launches {moved['decode_attention']} "
-            f"!= steps {steps} x layers {cfg.n_layers}")
+            f"!= (replays {steps} + warm-up steps {warm_steps}) x layers "
+            f"{cfg.n_layers}")
+    # one more captured step of an in-process replica against the eager one
+    rep = Replica(cfg, rng_seed=0, max_seq=MAX_SEQ,
+                  exec_cache=ExecutableCache())
+    exe = rep.executable(MAX_SLOTS)
+    tok = np.arange(1, MAX_SLOTS + 1, dtype=np.int32)[:, None]
+    for t in range(4):
+        exe(tok + t, np.full(MAX_SLOTS, t, np.int32))
+    check = captured_vs_eager(exe, tok, np.full(MAX_SLOTS, 4, np.int32))
+    del rep, exe
     emit("container", config=cfg.name, requests=N_REQUESTS,
          served=len(invs), replicas_created=len(lb.start_log),
          create_cold_s=colds, create_warm_s=warms,
@@ -1657,7 +1916,8 @@ def phase_container(cfg, process_serve: dict) -> None:
          batched_invokes=lb.batched_invokes, teardowns=lb.teardowns,
          sandboxes={str(k): len(v) for k, v in sorted(by_sandbox.items())},
          tokens_equal_in_process=True, in_process_decode_steps=steps,
-         in_process_kernel_launches=moved,
+         in_process_warm_steps=warm_steps,
+         in_process_kernel_launches=moved, captured_vs_eager=check,
          child_kernel_launches="not visible to the parent: the protocol "
                                "carries tokens only")
 
@@ -1673,25 +1933,33 @@ def phase_generate(cfg) -> None:
     prompt = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab, 48).tolist()
     runs = []
+    steps = len(prompt) + MAX_NEW
     for _ in range(2):
         rep = Replica(cfg, rng_seed=SEED, max_seq=MAX_SEQ,
                       exec_cache=ExecutableCache())
+        exe = rep.executable(1)
+        require(exe.graph is not None,
+                "generate's step is not a captured graph")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = rep.generate(prompt, max_new_tokens=MAX_NEW)
         torch.cuda.synchronize()
         runs.append((toks, time.perf_counter() - t0))
-        del rep
+        require(exe.replays == steps,
+                f"generate replayed {exe.replays} of {steps} steps")
+        check = captured_vs_eager(exe, [[toks[-1]]], steps)
+        capture_s = exe.capture_s
+        del rep, exe
         torch.cuda.empty_cache()
     (a, sa), (b, sb) = runs
     require(len(a) == MAX_NEW and all(0 <= t < cfg.vocab for t in a),
             f"generate: tokens {a}")
     require(a == b, f"generate differs between two runs on the same "
             f"weights: {a} vs {b}")
-    steps = len(prompt) + MAX_NEW
     emit("generate", config=cfg.name, prompt_len=len(prompt),
          max_new_tokens=MAX_NEW, tokens=a, seconds=[sa, sb],
-         ms_per_step=[sa / steps * 1e3, sb / steps * 1e3])
+         ms_per_step=[sa / steps * 1e3, sb / steps * 1e3],
+         capture_s=capture_s, captured_vs_eager=check)
 
 
 # -- phase: whisper -------------------------------------------------------------
@@ -1852,6 +2120,9 @@ def probe_grad_refusal() -> list:
                                  -torch.ones(2, device="cuda"),
                                  t(1, 64, 2, 16), t(1, 64, 2, 16),
                                  t(2)),
+        "grouped_matmul": lambda q: ops.grouped_matmul(
+            q.reshape(64, 128), t(2, 128, 64),
+            torch.tensor([30, 34], device="cuda")),
     }
     refused = []
     for name, call in cases.items():
@@ -2106,14 +2377,17 @@ def phase_train_whisper(cfg) -> None:
 
 def phase_launch_serve() -> None:
     """The serve launcher at the reference's size (24 requests, 4 workers,
-    the reduced model) at 40 requests a virtual second, so that the
-    autoscaler starts several sandboxes: every request ok, and each one's
+    the reduced model) at 400 requests a virtual second, so that the
+    autoscaler starts several sandboxes (the wall time a request takes is
+    billed to the simulated clock; a captured step serves one in a few ms,
+    so at 40 a second, one every 25 ms, one sandbox kept up with all of
+    them): every request ok, and each one's
     tokens equal a solo replica drawn from the seed of the sandbox it was
     admitted to (each sandbox's replica has other weights)."""
     from repro_torch.launch import serve
     from repro_torch.serving.engine import Replica
 
-    out = serve.main(["--device", "cuda", "--rate", "40"])
+    out = serve.main(["--device", "cuda", "--rate", "400"])
     invs, backend = out["invocations"], out["backend"]
     require(out["ok"] == len(invs) == 24, f"launch/serve: {out['ok']}/"
             f"{len(invs)} ok")
@@ -3572,12 +3846,18 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
              "src/repro/kernels/rwkv6_chunk.py:83"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "src/repro/kernels/ssd_chunk.py:80"),
+    # not a Pallas kernel: lax.ragged_dot, the MoE's grouped GEMM
+    "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                       "src/repro/models/moe.py:128"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "rwkv6-7b": ("wkv6",),
                 "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd"),
-                "arctic-480b": ("decode_attention", "flash_attention"),
+                "arctic-480b": ("decode_attention", "flash_attention",
+                                "grouped_matmul"),
+                "kimi-k2-1t-a32b": ("decode_attention", "flash_attention",
+                                    "grouped_matmul"),
                 "qwen2-vl-72b": ("decode_attention", "flash_attention"),
                 # the parent's in-process replicas that check the children
                 "smollm-360m/container": ("decode_attention",),
@@ -3589,7 +3869,8 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 # four ranks on cuda:0 over gloo; the counts are the ranks'
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
                 "mesh/smollm-360m": ("decode_attention", "flash_attention"),
-                "mesh/arctic-480b": ("decode_attention", "flash_attention"),
+                "mesh/arctic-480b": ("decode_attention", "flash_attention",
+                                     "grouped_matmul"),
                 "mesh/train-smollm-360m": (),
                 "mesh/rwkv6-7b": ("wkv6",),
                 "mesh/zamba2-2.7b": ("decode_attention", "flash_attention",
@@ -3651,6 +3932,13 @@ def run_path(name, serve_records) -> dict:
         # alive at a time
         phase_model(cfg, fp32_depth=1, bf16_depth=2)
         phase_serve(replace(cfg, n_layers=2), max_scale=1,
+                    full_depth=cfg.n_layers)
+    elif name == "kimi-k2-1t-a32b":
+        # 384 experts of 7168 x 2048 x 3 are 33.8 GB a layer in bf16, with
+        # 4.7 GB of embedding and head: depth 1 in bf16 only (fp32 would be
+        # ~78 GB); serve keeps one replica alive at a time
+        phase_model(cfg, fp32_depth=None, bf16_depth=1)
+        phase_serve(replace(cfg, n_layers=1), max_scale=1,
                     full_depth=cfg.n_layers)
     elif name == "qwen2-vl-72b":
         phase_model(cfg, fp32_depth=2, bf16_depth=8)

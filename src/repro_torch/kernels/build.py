@@ -158,6 +158,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         cl, cl, cl, cl, cl, cl,      # strides (batch, position, head) of x, dt
         cl, cl, cl, cl, cl, cl,      # ... and of B, C
         ci, ci, vp]                  # is_bf16, design, stream
+    lib.repro_grouped_gemm.restype = ci
+    lib.repro_grouped_gemm.argtypes = [
+        vp, vp, vp, vp,              # x, w, group_sizes, out
+        ci, ci, ci, ci,              # C, K, N, E
+        ci, vp]                      # is_bf16, stream
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_cuda_error_string.argtypes = [ci]
 

@@ -5,7 +5,9 @@ within a chunk of length C the recurrence is evaluated as dense products,
 with an exact state carry between chunks (a Python loop over the chunks
 where the reference scans). These are the plain versions of the two
 recurrence kernels (``rwkv6_chunk.py``, ``ssd_chunk.py``): the CPU tests
-reach them, and ``chip_smoke.py`` holds the kernels against them.
+reach them, and ``chip_smoke.py`` holds the kernels against them. The plain
+version of the grouped GEMM (``grouped_gemm.py``) is here too: a loop over
+the expert groups, the way the chunked forms loop over the chunks.
 
 Derivation (WKV6; cum_i = sum_{l<i} log w_l, so cum_0 = 0):
     intra:  y_i += sum_{j<i} (r_i . (k_j * exp(cum_i - cum_{j+1}))) v_j
@@ -118,3 +120,20 @@ def ssd_decode(x, dt, A, B, C, D, state):
     y = torch.einsum("bhpn,bhn->bhp", h_new, Ct) \
         + D.float()[None, :, None] * xt
     return y[:, None], h_new
+
+
+def grouped_matmul_loop(x, w, group_sizes):
+    """``lax.ragged_dot`` as a loop of ``torch.matmul`` over the contiguous
+    groups of the rows: x (C, K), w (E, K, N), group_sizes (E,) -> (C, N)
+    in x's dtype, rows past the last group 0. Reads ``group_sizes`` on the
+    host (a synchronisation on the card)."""
+    C = x.shape[0]
+    out = torch.zeros((C, w.shape[-1]), dtype=x.dtype, device=x.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):          # host sync
+        n = min(n, C - start)
+        if n <= 0:
+            continue
+        out[start:start + n] = torch.matmul(x[start:start + n], w[e])
+        start += n
+    return out

@@ -18,11 +18,13 @@ from typing import Dict
 
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
+from repro_torch.kernels import grouped_gemm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_chunk as _k3
 from repro_torch.kernels import ssd_chunk as _k4
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.grouped_gemm import grouped_matmul_plain
 from repro_torch.kernels.rwkv6_chunk import wkv6_plain
 from repro_torch.kernels.ssd_chunk import ssd_plain
 
@@ -30,10 +32,12 @@ _decode_kernel = _k1.decode_attention
 _flash_kernel = _k2.flash_attention
 _wkv6_kernel = _k3.wkv6
 _ssd_kernel = _k4.ssd
+_grouped_kernel = _gmm.grouped_matmul
 _KERNELS = {"decode_attention": _decode_kernel,
             "flash_attention": _flash_kernel,
             "wkv6": _wkv6_kernel,
-            "ssd": _ssd_kernel}
+            "ssd": _ssd_kernel,
+            "grouped_matmul": _grouped_kernel}
 
 
 def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
@@ -86,9 +90,44 @@ def ssd(x, dt, A, B, C, D, initial_state=None, chunk=64, impl="kernel"):
     raise ValueError(impl)
 
 
+def grouped_matmul(x, w, group_sizes, impl="kernel"):
+    """``lax.ragged_dot(x, w, group_sizes)``: x (C, K) rows sorted by
+    expert, w (E, K, N), group_sizes (E,) -> (C, N), rows past the last
+    group 0."""
+    if impl == "kernel":
+        return _grouped_kernel(x, w, group_sizes)
+    if impl == "plain":
+        return grouped_matmul_plain(x, w, group_sizes)
+    if impl == "reference":
+        return ref.grouped_matmul_ref(x, w, group_sizes)
+    raise ValueError(impl)
+
+
+# -- launch counters ------------------------------------------------------------
+#
+# Each wrapper adds one to its count where it launches its kernel. A CUDA
+# graph replay calls no wrapper, so a captured decode step
+# (``serving/exec_cache.py``) records what its capture counted
+# (``launch_delta``), takes it back (a capture is not a run) and adds it at
+# every replay (``add_launches``).
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
     return {name: fn.launches for name, fn in _KERNELS.items()}
+
+
+def launch_delta(before: Dict[str, int]) -> Dict[str, int]:
+    """Launches counted since ``before`` (a ``launch_counts()``), by kernel;
+    kernels that did not move are left out."""
+    now = launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``counts`` (by kernel name) ``times`` over to the counters."""
+    for name, n in counts.items():
+        _KERNELS[name].launches += n * times
 
 
 def reset_launch_counts() -> None:

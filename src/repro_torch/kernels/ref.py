@@ -68,3 +68,18 @@ def ssd_ref(x, dt, A, B, C, D, initial_state=None):
         ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t])
                   + D[None, :, None] * x[:, t])
     return torch.stack(ys, dim=1), state
+
+
+# -- grouped GEMM (lax.ragged_dot) -------------------------------------------
+
+def grouped_matmul_ref(x, w, group_sizes):
+    """Each row times its own expert's matrix, the expert found from the
+    prefix sums of ``group_sizes``; rows past the last group 0. fp32
+    inside, x's dtype out. Materialises (C, K, N): tests only."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(x.shape[0], device=x.device)
+    expert = torch.searchsorted(ends, rows, right=True)
+    live = expert < w.shape[0]
+    wr = w[expert.clamp(max=w.shape[0] - 1)].float()
+    out = torch.einsum("ck,ckn->cn", x.float(), wr)
+    return (out * live[:, None]).to(x.dtype)

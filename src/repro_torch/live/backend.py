@@ -4,13 +4,14 @@ Execution mode is selected per function by ``LiveFunctionSpec.mode``:
 
   * ``process``   — the sandbox is an in-process ``Replica`` +
     ``ContinuousBatcher`` on the backend's device. A creation after the
-    first pays model-state construction only (params + KV cache): the kernel
-    library, the library handles and the warmed decode signature come from
-    the process-global ``ExecutableCache`` — the live analogue of a snapshot
+    first pays model-state construction (params + KV cache) and the capture
+    of its replica's decode step as a CUDA graph: the kernel library, the
+    library handles and the warmed decode signature come from the
+    process-global ``ExecutableCache`` — the live analogue of a snapshot
     restore against pre-created state.
   * ``container`` — the sandbox is an isolated subprocess worker
     (``live/container.py``) on the backend's device: spawn + import +
-    replica build + one warm decode step, seconds — the containerd
+    replica build + the capture of its decode step, seconds — the containerd
     analogue. Its warm state cannot be shared in-process; the kernel build
     directory ``compile_cache_dir`` plays the shared-cache role across
     worker processes instead (the first creation builds the library there,
@@ -78,6 +79,15 @@ class _ProcessSandbox:
         self.replica = Replica(spec.cfg, rng_seed=seed, max_seq=spec.max_seq,
                                run_cfg=spec.run_cfg, exec_cache=exec_cache,
                                device=device)
+        # build and capture the batcher's decode executable before any
+        # request is admitted: the first-step costs of a new signature
+        # (kernel build and load, library handles, allocator growth) and
+        # this replica's own capture are billed to creation, not to the
+        # first invoke; ``warm_s`` is 0.0 when the signature was warmed
+        shape = ShapeSpec("live", spec.max_seq, spec.max_slots, "decode")
+        self.warm_s = exec_cache.warm(spec.cfg, shape,
+                                      run_cfg=self.replica.run_cfg,
+                                      model=self.replica.model)
         self.batcher = ContinuousBatcher(self.replica,
                                          max_slots=spec.max_slots)
 
@@ -177,15 +187,8 @@ class LiveBackend:
             misses0 = self.exec_cache.misses
             rt = _ProcessSandbox(spec, self.exec_cache,
                                  seed=sandbox.sandbox_id, device=self.device)
-            # bill the first-step costs (kernel build and load, library
-            # handles, allocator growth) to creation, not to the first
-            # invoke: a cold cache pays them here; a warm one returns at once
-            shape = ShapeSpec("live", spec.max_seq, spec.max_slots, "decode")
-            warm_s = self.exec_cache.warm(spec.cfg, shape,
-                                          run_cfg=rt.replica.run_cfg,
-                                          model=rt.replica.model)
             # cold = this creation built the entry OR warmed a new signature
-            cold = self.exec_cache.misses > misses0 or warm_s > 0.0
+            cold = self.exec_cache.misses > misses0 or rt.warm_s > 0.0
             sync(self.device)
         self.sandboxes[sandbox.sandbox_id] = rt
         self._failed_sids.discard(sandbox.sandbox_id)

@@ -51,16 +51,22 @@ def _child_main(conn, spec, cache_dir: Optional[str], seed: int,
         if cache_dir:
             # read by build.build_root() at the first launch, not at import
             os.environ["REPRO_TORCH_BUILD_DIR"] = cache_dir
+        from repro_torch.configs.base import ShapeSpec
         from repro_torch.serving.engine import ContinuousBatcher, Replica
         from repro_torch.serving.exec_cache import ExecutableCache
 
         # fresh per-process cache: isolation is the point of container mode
+        cache = ExecutableCache()
         replica = Replica(spec.cfg, rng_seed=seed, max_seq=spec.max_seq,
-                          run_cfg=spec.run_cfg,
-                          exec_cache=ExecutableCache(), device=device)
+                          run_cfg=spec.run_cfg, exec_cache=cache,
+                          device=device)
+        # capture the batcher's decode step before acking ready, so creation
+        # wall time includes the kernel build (cold) or its load (warm) and
+        # the capture; then one request through the captured step
+        cache.warm(spec.cfg, ShapeSpec("live", spec.max_seq, spec.max_slots,
+                                       "decode"),
+                   run_cfg=replica.run_cfg, model=replica.model)
         batcher = ContinuousBatcher(replica, max_slots=spec.max_slots)
-        # warm the batcher's decode step before acking ready, so creation
-        # wall time includes the kernel build (cold) or its load (warm)
         warm_rid = batcher.add_request([1], 1)
         batcher.run_until_done()
         batcher.finished.pop(warm_rid, None)

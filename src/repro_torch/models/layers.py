@@ -8,6 +8,8 @@ blocked attention forms live beside their kernels in
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Sequence
 
@@ -171,19 +173,42 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 # -- decode lengths -----------------------------------------------------------
 
+_LENGTHS_CHECKED = contextvars.ContextVar("lengths_checked", default=False)
+
+
+@contextlib.contextmanager
+def lengths_checked():
+    """Inside, ``one_cache_len`` takes entry 0 without comparing the
+    entries: its caller has checked them on the host before copying them
+    to the device (the captured decode step, ``serving/exec_cache.py``,
+    whose body must not read the device)."""
+    token = _LENGTHS_CHECKED.set(True)
+    try:
+        yield
+    finally:
+        _LENGTHS_CHECKED.reset(token)
+
+
+def check_one_length(lens, who: str) -> None:
+    """Raise unless ``lens`` (numpy, or a tensor, which this reads on the
+    host) are all equal."""
+    if bool((lens != lens.reshape(-1)[0]).any()):
+        raise ValueError(
+            f"{who}.decode_step takes one cache_len for the whole batch, as "
+            "the reference does; per-row lengths are not supported "
+            "(ROADMAP §C2)")
+
+
 def one_cache_len(cache_len: torch.Tensor, who: str) -> torch.Tensor:
     """One length for the whole batch, as a 0-d long tensor: a scalar, or a
     (B,) tensor whose entries are equal. The reference writes such a
     model's caches with one scalar ``dynamic_update_slice``, so per-row
     lengths that differ raise (ROADMAP §C2) instead of being misread.
     Comparing the entries reads them on the host; a meta tensor (a dry run's
-    planning step) has no entries to compare, and only its shape is taken."""
+    planning step) has no entries to compare, and only its shape is taken,
+    as under ``lengths_checked()``."""
     if cache_len.ndim:
-        if cache_len.device.type != "meta" and bool(
-                (cache_len != cache_len.reshape(-1)[0]).any()):
-            raise ValueError(
-                f"{who}.decode_step takes one cache_len for the whole "
-                "batch, as the reference does; per-row lengths are not "
-                "supported (ROADMAP §C2)")
+        if cache_len.device.type != "meta" and not _LENGTHS_CHECKED.get():
+            check_one_length(cache_len, who)
         cache_len = cache_len.reshape(-1)[0]
     return cache_len.long()

@@ -12,11 +12,15 @@ Counterpart of ``repro.models.moe``. Same parameter keys and stacked shapes
      capacity ``C = min(max(int(T·k / n_shards · moe_capacity_factor), k),
      T·k)``: overflow drops, as in the reference;
   3. the grouped GEMM: ``lax.ragged_dot`` (an XLA primitive, not a Pallas
-     kernel) becomes a loop of ``torch.matmul`` over the contiguous groups
-     of the sorted buffer. Reading the group sizes is one host
-     synchronisation per call (per MoE layer); on meta tensors (the dry
-     run) the ``C`` rows are split evenly instead, which counts the same
-     FLOPs as one product over them and reads every local expert once;
+     kernel) becomes ``ops.grouped_matmul``, routed by ``run.attn_impl``:
+     the hand-written kernel reads the group sizes on the device (no host
+     synchronisation, so a decode step can be captured as a CUDA graph);
+     the plain form, which training differentiates, loops ``torch.matmul``
+     over the contiguous groups after reading the sizes on the host. The
+     FSDP experts of a mesh keep that loop, a chunk of gathered experts at
+     a time; on meta tensors (the dry run) the ``C`` rows are split evenly
+     instead, which counts the same FLOPs as one product over them and
+     reads every local expert once;
   4. ``silu(gate)·up`` in fp32 cast back to the model dtype, the down
      projection, the renormalised weights, an fp32 ``index_add_`` back to
      the token positions.
@@ -52,6 +56,7 @@ import torch.nn.functional as F
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as S
 from repro_torch.models.sharding import P
@@ -178,6 +183,14 @@ def route(cfg: ArchConfig, run_cfg, router: torch.Tensor, x: torch.Tensor,
                    sel_e=sel_e, sel_p=sel_p, group_sizes=group_sizes)
 
 
+def _combine(out: torch.Tensor, r: Routing, T: int, D: int) -> torch.Tensor:
+    """Step 4's tail: the rows weighted by their renormalised probability
+    and added back to their tokens in fp32: (C, D) -> (T, D)."""
+    out = out.float() * r.sel_p[:, None]
+    return torch.zeros((T, D), dtype=torch.float32,
+                       device=out.device).index_add_(0, r.sel_tok, out)
+
+
 def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
                n_shards: int, shard_id: int, gather=None) -> torch.Tensor:
     """Per-device MoE computation. x: (T, D) tokens; w experts: (E_local,
@@ -192,10 +205,20 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
     r = route(cfg, run_cfg, w["router"], x, n_local=n_local,
               n_shards=n_shards, shard_id=shard_id)
     xin = x[r.sel_tok].to(dt)                              # (C, D)
-    # the grouped GEMM over the contiguous expert groups of the sorted rows;
-    # rows past the last group (not this shard's) stay 0 as in ragged_dot
-    out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)
     meta = x.device.type == "meta"
+    if not meta and gather is None:
+        # the grouped GEMM over the contiguous expert groups of the sorted
+        # rows; rows past the last group (not this shard's) come out 0
+        def gmm(a, b):
+            return ops.grouped_matmul(a, b, r.group_sizes,
+                                      impl=run_cfg.attn_impl)
+
+        g, u = gmm(xin, w["e_gate"]), gmm(xin, w["e_up"])
+        h = (F.silu(g.float()) * u.float()).to(dt)
+        return _combine(gmm(h, w["e_down"]), r, T, D)
+    # FSDP experts (gathered a chunk at a time) and the dry run loop over
+    # the groups; rows past the last group stay 0
+    out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)
     if meta:
         # no values to route by (a dry run's planning step): the C packed
         # rows split evenly over the local experts, whose FLOPs are one
@@ -225,9 +248,7 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
             h = (F.silu(g.float()) * u.float()).to(dt)
             out[start:start + n] = torch.matmul(h, wd[e - off])
             start += n
-    out = out.float() * r.sel_p[:, None]
-    y = torch.zeros((T, D), dtype=torch.float32,
-                    device=x.device).index_add_(0, r.sel_tok, out)
+    y = _combine(out, r, T, D)
     if gathered:
         # every gather's backward is collective: tie each gathered chunk
         # into the output (with weight 0), so that a rank none of whose

@@ -80,6 +80,9 @@ from repro_torch.models.sharding import P
 
 
 class Zamba2Model(nn.Module):
+    # decode_step takes one cache_len for the batch (``L.one_cache_len``)
+    per_row_lengths = False
+
     def __init__(self, cfg: ArchConfig, run_cfg: Optional[RunConfig] = None,
                  device: DeviceLike = None):
         """Parameters are allocated uninitialised on ``device`` (``None`` =

@@ -2,9 +2,15 @@
 
 Two layers:
 
-  * ``Replica`` — one model instance on one device: eager decode, greedy or
-    temperature sampling, simple per-request ``generate``. This is what the
-    live-mode worker hook instantiates per sandbox.
+  * ``Replica`` — one model instance on one device, greedy or temperature
+    sampling, simple per-request ``generate``. Every decode step runs
+    through the replica's ``DecodeExecutable`` of its batch size
+    (``serving/exec_cache.py``): on a CUDA device a replay of the captured
+    graph of ``decode_step``, the counterpart of the reference's
+    ``jax.jit``; on the CPU the same step run eagerly on the same static
+    buffers. The executable owns the cache: ``new_cache(b)`` hands out (and
+    zeroes) the one of batch ``b``. This is what the live-mode worker hook
+    instantiates per sandbox.
   * ``ContinuousBatcher`` — slot-based continuous batching on top of a
     Replica: a fixed (max_slots, max_seq) KV cache; new requests are admitted
     into free slots mid-flight and their prompts are consumed token-by-token
@@ -13,7 +19,9 @@ Two layers:
     sandbox advertises ``max_slots`` as its concurrency capacity to the
     Dirigent DP.
 
-Every model call runs under ``torch.inference_mode()``.
+Sampling and the batcher's argmax run outside the captured step, as the
+reference's ``sample_token`` is a call of its own. Every model call runs
+under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ import torch
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models.api import RunConfig
-from repro_torch.serving.exec_cache import ExecutableCache, default_cache
+from repro_torch.serving.exec_cache import (DecodeExecutable, ExecutableCache,
+                                            default_cache)
 
 
 def sample_token(logits: torch.Tensor,
@@ -60,7 +69,8 @@ class Replica:
                                             seq_chunk=16)
         # the skeleton and the warmed decode signatures come from the shared
         # process-global cache: the second replica of a (cfg, run_cfg) pays
-        # model-state construction only (serving/exec_cache.py)
+        # model-state construction and its own capture only
+        # (serving/exec_cache.py)
         self.exec_cache = exec_cache if exec_cache is not None \
             else default_cache()
         self.entry = self.exec_cache.get(cfg, self.run_cfg)
@@ -72,40 +82,58 @@ class Replica:
         else:
             self.model.load_state_dict(params)
         self.stats = {"requests": 0, "tokens": 0, "decode_steps": 0}
+        self._executables: Dict[int, DecodeExecutable] = {}
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return self.model.state_dict()
 
-    @torch.inference_mode()
-    def _decode(self, cache, batch):
-        return self.model.decode_step(cache, batch)
+    def executable(self, batch: int) -> DecodeExecutable:
+        """The decode executable of ``batch`` rows at ``max_seq``, warmed
+        (and on a CUDA device captured) through the cache on first use."""
+        exe = self._executables.get(batch)
+        if exe is None:
+            exe = self.exec_cache.executable(
+                self.cfg, ShapeSpec("serve", self.max_seq, batch, "decode"),
+                self.run_cfg, model=self.model)
+            self._executables[batch] = exe
+        return exe
 
-    @torch.inference_mode()
+    def _decode(self, cache, batch):
+        """One step on ``cache``, which must be ``new_cache``'s of that
+        batch size: -> (logits, cache). The logits are the executable's
+        static output, overwritten by its next step."""
+        exe = self.executable(len(batch["tokens"]))
+        if cache is not exe.cache:
+            raise ValueError("a replica decodes on the cache its executable "
+                             "owns: take it from new_cache()")
+        return exe(batch["tokens"], batch["cache_len"]), exe.cache
+
     def new_cache(self, batch: int):
-        shape = ShapeSpec("serve", self.max_seq, batch, "decode")
-        return self.model.init_cache(shape, batch=batch)
+        """The zeroed cache of the executable of ``batch`` rows (one per
+        batch size and replica)."""
+        exe = self.executable(batch)
+        exe.reset()
+        return exe.cache
 
     def generate(self, prompt_tokens: List[int], max_new_tokens: int = 16,
                  temperature: float = 0.0, seed: int = 0) -> List[int]:
-        """Single-request generation (prompt consumed via decode steps)."""
-        cache = self.new_cache(1)
+        """Single-request generation (prompt consumed via decode steps) on
+        the batch-1 executable, whose cache is zeroed first."""
+        exe = self.executable(1)
+        exe.reset()
         toks = list(prompt_tokens)
         out: List[int] = []
         gen = torch.Generator(device=self.device).manual_seed(seed)
         logits = None
         for t, tok in enumerate(toks):
-            batch = {"tokens": torch.tensor([[tok]], dtype=torch.int32),
-                     "cache_len": t}
-            logits, cache = self._decode(cache, batch)
+            logits = exe([[tok]], t)
             self.stats["decode_steps"] += 1
         pos = len(toks)
         for _ in range(max_new_tokens):
             nxt = int(sample_token(logits, gen, temperature)[0])
             out.append(nxt)
-            batch = {"tokens": torch.tensor([[nxt]], dtype=torch.int32),
-                     "cache_len": pos}
-            logits, cache = self._decode(cache, batch)
+            logits = exe([[nxt]], pos)
             self.stats["decode_steps"] += 1
             pos += 1
         self.stats["requests"] += 1
@@ -169,8 +197,7 @@ class ContinuousBatcher:
                 tokens[i, 0] = s.pending.pop(0)
             else:
                 tokens[i, 0] = (s.generated[-1] if s.generated else 0)
-        batch = {"tokens": torch.from_numpy(tokens),
-                 "cache_len": torch.from_numpy(lens)}
+        batch = {"tokens": tokens, "cache_len": lens}
         logits, self.cache = self.replica._decode(self.cache, batch)
         self.steps += 1
         # the device->host copy of the argmax synchronises with the device
