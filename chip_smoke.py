@@ -30,9 +30,14 @@ JSON line:
            the fp32 one, and ``ms`` three times (``ms``, ``ms_again``,
            ``ms_third``) for the spread; the grouped GEMM (the MoE's
            ``lax.ragged_dot``) at arctic-480b's and kimi-k2's decode steps
-           and arctic's prefill, fp32 and bf16, at empty groups, one group,
-           rows past the last group (exactly 0) and eager against graph
-           replay, ``torch._grouped_mm`` timed beside it
+           (gate and down) and arctic's prefill, and the fused gate/up pass
+           (``grouped_swiglu``: two of them and silu(g) u) at the three gate
+           shapes, fp32 and bf16, at empty groups, one group, a group of
+           more rows than a pass holds, rows past the last group (exactly
+           0), K not a multiple of 8, and eager against graph replay, with
+           ``torch._grouped_mm`` (twice, and the epilogue, for the fused
+           pass) timed beside them and each timed row's share of its byte
+           bound
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
@@ -53,7 +58,11 @@ beside the eager step's time and host syncs:
                depth and fp32 at cut depth; serve: Cluster -> DataPlane ->
                WorkerDaemon -> LiveBackend -> ContinuousBatcher ->
                DecoderLM.decode_step, 16 requests, the launch counters
-               accounting for every step
+               accounting for every step; cache_owners: a batcher's 8
+               requests alone, then again with a ``generate`` and a second
+               batcher of the same batch size coming in after 4 steps on
+               the same replica, tokens equal (each ``new_cache`` its own
+               captured executable)
   rwkv6-7b     model: the same legs at full width (forward on the WKV6
                kernel); serve: the same path and traffic into
                RWKV6Model.decode_step, plus one probe request admitted into
@@ -72,7 +81,11 @@ beside the eager step's time and host syncs:
                twin (the loop over the groups) sharing the kernel model's
                tensors; serve: the smollm traffic through the same path
                into one replica at a time (max_scale 1), the probe against
-               a solo replica built after the backend is gone
+               a solo replica built after the backend is gone; every
+               serve step launches ``grouped_swiglu`` and ``grouped_matmul``
+               once a layer, and the steady state records each grouped
+               launch of a captured step (device ms, active experts, share
+               of their byte bound)
   kimi-k2-1t-a32b
                the MoE family at 384 experts, top-8, 64/8 heads, vocab
                163840, at full width and depth 1 in bf16 (38.8 GB; fp32
@@ -157,7 +170,9 @@ error, time, plain time, library time, bound; for WKV6 and SSD also the
 
 Tolerances. A kernel against its plain version on the same inputs: 2e-5 in
 fp32 (both accumulate in fp32; only the summation order differs) and 2e-2 in
-bf16 (one bf16 rounding of an output of magnitude <= ~4); the recurrences
+bf16 (one bf16 rounding of an output of magnitude <= ~4; the fused
+gate/up pass, whose silu(g) u reaches ~10, as an allclose with atol = rtol,
+as the CPU tests hold it against the reference); the recurrences
 (WKV6, SSD) five times that, as an allclose (atol = rtol), the limits of
 tests/test_kernels.py: their chunked form multiplies factors exp(+-cum) of
 up to e^32 whose fp32 prefix sums differ by a few ulp between the two
@@ -947,46 +962,69 @@ def grouped_library(x, w, gs):
                                                      dtype=torch.int32))
 
 
+def swiglu_library(x, wg, wu, gs):
+    """The fused pass's yardstick: ``torch._grouped_mm`` twice and the
+    epilogue, used nowhere in the port."""
+    g, u = grouped_library(x, wg, gs), grouped_library(x, wu, gs)
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
+
+
 def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
-                  graph=False):
-    """The grouped GEMM (``lax.ragged_dot``) against its plain version, the
-    loop over the groups. With ``timed``, ``ms`` is device time (a graph of
-    the kernel's launches), ``eager_ms`` the kernel called from Python, and
-    ``plain_ms`` the plain version called from Python: it reads the sizes on
-    the host, so it cannot be captured, and its time includes that wait.
-    The weights are 1-9 GB, far past L2, so every launch reads them cold as
-    the model's does. ``graph``: two eager calls and two graph replays
-    bit-equal."""
-    from repro_torch.kernels.grouped_gemm import (grouped_matmul,
-                                                  grouped_matmul_plain)
+                  graph=False, fused=False):
+    """The grouped GEMM (``lax.ragged_dot``), or with ``fused`` the fused
+    gate/up pass (two of them and ``silu(g) * u``), against its plain
+    version, the loop over the groups. With ``timed``, ``ms`` is device
+    time (a graph of the kernel's launches), ``eager_ms`` the kernel called
+    from Python, and ``plain_ms`` the plain version called from Python: it
+    reads the sizes on the host, so it cannot be captured, and its time
+    includes that wait. The weights are 1-18 GB a matrix, far past L2, so
+    every launch reads them cold as the model's does. ``graph``: two eager
+    calls and two graph replays bit-equal."""
+    from repro_torch.kernels import grouped_gemm as G
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     x = torch.randn((C, K), generator=g, device="cuda", dtype=dtype)
-    w = torch.randn((E, K, N), generator=g, device="cuda", dtype=dtype)
-    w.mul_(K ** -0.5)
+    ws = [torch.randn((E, K, N), generator=g, device="cuda",
+                      dtype=dtype).mul_(K ** -0.5)
+          for _ in range(2 if fused else 1)]
     gs = torch.tensor(sizes, dtype=torch.int64, device="cuda")
-    got = grouped_matmul(x, w, gs)
-    want = grouped_matmul_plain(x, w, gs)
+    if fused:
+        kernel, lib = "grouped_swiglu", swiglu_library
+        run, plain = G.grouped_swiglu, G.grouped_swiglu_plain
+    else:
+        kernel, lib = "grouped_matmul", grouped_library
+        run, plain = G.grouped_matmul, G.grouped_matmul_plain
+    got = run(x, *ws, gs)
+    want = plain(x, *ws, gs)
     torch.cuda.synchronize()
-    err = max_abs_err(got, want)
+    err, tol = max_abs_err(got, want), KERNEL_TOL[dtype]
     rows = int(sum(sizes))
-    rec = {"case": name, "kernel": "grouped_matmul",
+    rec = {"case": name, "kernel": kernel,
            "shape": {"C": C, "K": K, "N": N, "E": E},
            "dtype": dt_name(dtype), "rows": rows,
            "active_experts": sum(1 for n in sizes if n),
-           "max_abs_err": err, "tol": KERNEL_TOL[dtype],
+           "max_abs_err": err, "tol": tol,
            "rows_past_last_group_zero": bool((got[rows:] == 0).all())}
     require(bool(torch.isfinite(got.float()).all()), f"{name}: not finite")
-    require(err <= KERNEL_TOL[dtype],
-            f"{name}: max_abs_err {err} > {KERNEL_TOL[dtype]}")
+    if fused:
+        # silu(g) u reaches |h| ~ 10 here, where one bf16 ulp is 0.03-0.06,
+        # and a g or u one ulp off (another order of the fp32 sum) moves h
+        # by |u| ulp(g): an allclose with atol = rtol = tol, as the CPU
+        # tests hold this op against lax.ragged_dot
+        rec["allclose_excess"] = allclose_excess(got, want, tol)
+        require(rec["allclose_excess"] <= tol,
+                f"{name}: not allclose at {tol}: excess "
+                f"{rec['allclose_excess']} (max_abs_err {err})")
+    else:
+        require(err <= tol, f"{name}: max_abs_err {err} > {tol}")
     require(rec["rows_past_last_group_zero"],
             f"{name}: rows past the last group are not 0")
     if graph:
-        outs = [grouped_matmul(x, w, gs).clone() for _ in range(2)]
+        outs = [run(x, *ws, gs).clone() for _ in range(2)]
         torch.cuda.synchronize()
         cg = torch.cuda.CUDAGraph()
         with torch.cuda.graph(cg):
-            static = grouped_matmul(x, w, gs)
+            static = run(x, *ws, gs)
         for _ in range(2):
             cg.replay()
             torch.cuda.synchronize()
@@ -997,31 +1035,31 @@ def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
                 f"{name}: eager and replayed outputs differ")
     if timed:
         item = x.element_size()
-        nbytes = (rec["active_experts"] * K * N + C * K + C * N) * item \
-            + E * 8
-        flops = 2.0 * rows * K * N
-        rec.update(ms=device_ms(lambda: grouped_matmul(x, w, gs)),
-                   eager_ms=time_ms(lambda: grouped_matmul(x, w, gs)),
-                   plain_ms=time_ms(lambda: grouped_matmul_plain(x, w, gs),
-                                    reps=5, warmup=1),
+        nbytes = (len(ws) * rec["active_experts"] * K * N + C * K + C * N) \
+            * item + E * 8
+        flops = 2.0 * len(ws) * rows * K * N
+        rec.update(ms=device_ms(lambda: run(x, *ws, gs)),
+                   eager_ms=time_ms(lambda: run(x, *ws, gs)),
+                   plain_ms=time_ms(lambda: plain(x, *ws, gs), reps=5,
+                                    warmup=1),
                    **bound(nbytes, flops, PEAK_FLOPS[dtype]))
-        rec["ms_again"] = device_ms(lambda: grouped_matmul(x, w, gs))
+        rec["ms_again"] = device_ms(lambda: run(x, *ws, gs))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["library_ms"] = rec["library_error"] = None
         if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
             try:
-                lib = grouped_library(x, w, gs)
+                ref = lib(x, *ws, gs)
                 torch.cuda.synchronize()
-                rec["library_max_abs_err"] = max_abs_err(lib[:rows],
+                rec["library_max_abs_err"] = max_abs_err(ref[:rows],
                                                          want[:rows])
-                rec["library_ms"] = device_ms(
-                    lambda: grouped_library(x, w, gs))
+                rec["library_ms"] = device_ms(lambda: lib(x, *ws, gs))
             except Exception as e:   # the yardstick only: record why not
                 rec["library_error"] = repr(e)[:300]
         elif dtype != torch.bfloat16:
             rec["library_error"] = "torch._grouped_mm takes bf16 only"
         else:
             rec["library_error"] = "this torch has no torch._grouped_mm"
-    del x, w, got, want
+    del x, ws, got, want
     torch.cuda.empty_cache()
     return rec
 
@@ -1287,15 +1325,49 @@ def phase_kernels() -> dict:
         check_grouped("grouped/arctic-prefill-gate/bf16", 512, 7168, 4864,
                       128, moe_group_sizes(256, 2, 128, SEED), bf16,
                       timed=True),
-        *[c for dt in (f32, bf16) for c in (
-            check_grouped(f"grouped/empty-groups/{dt_name(dt)}", 37, 100, 40,
-                          6, [0, 5, 0, 20, 0, 0], dt),
-            check_grouped(f"grouped/one-group/{dt_name(dt)}", 37, 100, 40, 5,
-                          [0, 0, 37, 0, 0], dt),
-            check_grouped(f"grouped/rows-past-last/{dt_name(dt)}", 45, 129,
-                          264, 4, [3, 0, 9, 1], dt, graph=True),
-            check_grouped(f"grouped/all-empty/{dt_name(dt)}", 9, 64, 16, 3,
-                          [0, 0, 0], dt),
+        # the fused gate/up pass at the three gate shapes above (its two
+        # matrices of each), fp32 at arctic's decode
+        check_grouped("swiglu/arctic-decode/bf16", 16, 7168, 4864, 128,
+                      moe_group_sizes(8, 2, 128, SEED), bf16, timed=True,
+                      graph=True, fused=True),
+        check_grouped("swiglu/kimi-decode/bf16", 64, 7168, 2048, 384,
+                      moe_group_sizes(8, 8, 384, SEED), bf16, timed=True,
+                      graph=True, fused=True),
+        check_grouped("swiglu/arctic-prefill/bf16", 512, 7168, 4864, 128,
+                      moe_group_sizes(256, 2, 128, SEED), bf16, timed=True,
+                      fused=True),
+        check_grouped("swiglu/arctic-decode/fp32", 16, 7168, 4864, 128,
+                      moe_group_sizes(8, 2, 128, SEED), f32, timed=True,
+                      fused=True),
+        # a decode step of arctic at the usual count of active experts
+        # (16 draws over 128 give ~15; SEED's draw gives 13): 15 x 38
+        # column tiles fill 264 blocks' rounds badly, so K is split
+        check_grouped("swiglu/arctic-decode-15/bf16", 16, 7168, 4864, 128,
+                      moe_group_sizes(8, 2, 128, SEED + 1), bf16, timed=True,
+                      graph=True, fused=True),
+        check_grouped("grouped/arctic-decode-down-15/bf16", 16, 4864, 7168,
+                      128, moe_group_sizes(8, 2, 128, SEED + 1), bf16,
+                      timed=True, graph=True),
+        # the edges of both: empty groups, a group of more rows than one
+        # pass holds, rows past the last group, K not a multiple of 8 (x
+        # rows not 16-byte aligned) or of a slab, N a partial column tile
+        *[c for dt in (f32, bf16) for fused in (False, True) for c in (
+            check_grouped(f"{'swiglu' if fused else 'grouped'}/empty-groups/"
+                          f"{dt_name(dt)}", 37, 100, 40, 6,
+                          [0, 5, 0, 20, 0, 0], dt, fused=fused),
+            check_grouped(f"{'swiglu' if fused else 'grouped'}/one-group/"
+                          f"{dt_name(dt)}", 37, 100, 40, 5, [0, 0, 37, 0, 0],
+                          dt, fused=fused),
+            check_grouped(f"{'swiglu' if fused else 'grouped'}/rows-past-last/"
+                          f"{dt_name(dt)}", 45, 129, 264, 4, [3, 0, 9, 1], dt,
+                          graph=True, fused=fused),
+            check_grouped(f"{'swiglu' if fused else 'grouped'}/all-empty/"
+                          f"{dt_name(dt)}", 9, 64, 16, 3, [0, 0, 0], dt,
+                          fused=fused),
+            check_grouped(f"{'swiglu' if fused else 'grouped'}/big-group/"
+                          f"{dt_name(dt)}", 300, 136, 392, 7,
+                          [40, 0, 170, 1, 0, 77, 3], dt, graph=True,
+                          fused=fused),
         )],
     ]
     emit("kernels", cases=cases)
@@ -1306,7 +1378,8 @@ def phase_kernels() -> dict:
             "flash_attention": by_case["flash/main/bf16"],
             "wkv6": by_case["wkv6/main/bf16"],
             "ssd": by_case["ssd/main/fp32"],
-            "grouped_matmul": by_case["grouped/arctic-decode-gate/bf16"]}
+            "grouped_matmul": by_case["grouped/arctic-decode-gate/bf16"],
+            "grouped_swiglu": by_case["swiglu/arctic-decode/bf16"]}
 
 
 # -- phase: model ---------------------------------------------------------------
@@ -1497,6 +1570,69 @@ def captured_vs_eager(exe, tokens, lens) -> dict:
     return rec
 
 
+def moe_launches(exe, tokens, lens, reps: int = 5) -> Optional[list]:
+    """Each grouped launch of one captured MoE step, in order: its device
+    ms (the mean over ``reps`` replays of the same step under
+    ``torch.profiler``: the same tokens at the same lengths rewrite the same
+    cache rows, so every replay routes alike), the active experts it read
+    (from ``decode_step`` run eagerly on a copy of the cache with the same
+    inputs and the wrappers spied) and its share of the byte bound of those
+    experts' weights. None when the profiler saw no grouped kernel (then
+    not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    calls = []
+
+    def spied(name, fn):
+        def call(x, *rest):
+            w, gs = rest[0], rest[-1]
+            calls.append({"kernel": name, "C": x.shape[0], "K": w.shape[1],
+                          "N": w.shape[2], "E": w.shape[0],
+                          "matrices": len(rest) - 1,
+                          "active_experts": int((gs > 0).sum()),
+                          "rows": int(gs.sum())})
+            return fn(x, *rest)
+        return call
+
+    real = ops._swiglu_kernel, ops._grouped_kernel
+    ops._swiglu_kernel = spied("grouped_swiglu", real[0])
+    ops._grouped_kernel = spied("grouped_matmul", real[1])
+    try:
+        with torch.inference_mode(), L.lengths_checked():
+            copy = {k: v.clone() for k, v in exe.cache.items()}
+            exe.model.decode_step(copy, {
+                "tokens": torch.as_tensor(tokens, device="cuda"),
+                "cache_len": torch.as_tensor(lens, device="cuda")})
+            del copy
+    finally:
+        ops._swiglu_kernel, ops._grouped_kernel = real
+    exe(tokens, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            exe(tokens, lens)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "grouped_" in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != reps * len(calls):
+        return None
+    out = []
+    for i, c in enumerate(calls):
+        ms = sum(evs[i + j * len(calls)].time_range.elapsed_us()
+                 for j in range(reps)) / reps / 1e3
+        nbytes = (c["matrices"] * c["active_experts"] * c["K"] * c["N"]
+                  + c["C"] * c["K"] + c["C"] * c["N"]) * 2 + c["E"] * 8
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({**c, "device_ms": ms, "bound_ms": b,
+                    "share_of_bound": b / ms if ms else None})
+    return out
+
+
 def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
     """Steady state of one replica with every slot busy: wall time per
     lockstep decode step (each a replay of the replica's captured graph),
@@ -1559,6 +1695,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
         eager_syncs = host_syncs(lambda: [eager_step() for _ in range(2)])
         del copy
     check = captured_vs_eager(exe, tok, lens + 1)
+    moe = moe_launches(exe, tok, lens + 2) if cfg.family == "moe" else None
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
            "ms_per_step": step_ms, "ms_per_step_traced": traced_ms,
            "tokens_per_s": MAX_SLOTS / step_ms * 1e3,
@@ -1569,6 +1706,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
            "capture_s": exe.capture_s,
            "launches_per_replay": exe.replay_counts,
            "captured_vs_eager": check,
+           "moe_launches": moe,
            "device_busy_ms_per_step": None, "device_busy_share": None,
            "top_device_kernels": None}
     if busy_us > 0:
@@ -1759,11 +1897,11 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
                 f"(replays {steps} + warm-up steps {warm_steps}) x layers "
                 f"{cfg.n_layers}")
     if cfg.family == "moe":
-        require(moved["grouped_matmul"]
-                == 3 * (steps + warm_steps) * cfg.n_layers,
-                f"grouped GEMM launches {moved['grouped_matmul']} != 3 x "
-                f"(replays {steps} + warm-up steps {warm_steps}) x layers "
-                f"{cfg.n_layers}")
+        # a layer: the fused gate/up pass, then the down projection
+        for k in ("grouped_swiglu", "grouped_matmul"):
+            require(moved[k] == (steps + warm_steps) * cfg.n_layers,
+                    f"{k} launches {moved[k]} != (replays {steps} + warm-up "
+                    f"steps {warm_steps}) x layers {cfg.n_layers}")
     reuse_count = sum(1 for i in invs
                       if lb.admitted[id(i.request)]["steps_before"] > 0)
     invoke_s, tokens_total = lb.invoke_seconds_total, lb.tokens_total
@@ -1820,6 +1958,67 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
         steady_state=profile, peak_memory_bytes=peak)
     emit("serve", **rec)
     return rec
+
+
+def phase_cache_owners(cfg) -> None:
+    """Each user of ``Replica.new_cache`` decodes on a cache of its own
+    (ROADMAP C12): a batcher's requests run alone on a replica, then again
+    on the same replica with interference after 4 steps: a ``generate``
+    (batch 1) and a second batcher of the same batch size that serves a
+    request of its own. The first batcher's tokens must equal its solo run.
+    The later caches are fresh executables, captured when they are asked
+    for; their capture seconds are recorded."""
+    from repro_torch.serving.engine import ContinuousBatcher, Replica
+    from repro_torch.serving.exec_cache import ExecutableCache
+
+    prompts = serve_prompts(cfg)[:MAX_SLOTS]
+    cache = ExecutableCache()
+    rep = Replica(cfg, rng_seed=0, max_seq=MAX_SEQ, exec_cache=cache)
+
+    def batch_run(interfere):
+        cb = ContinuousBatcher(rep, max_slots=MAX_SLOTS)
+        rids = [cb.add_request(p, max_new=MAX_NEW) for p in prompts]
+        for _ in range(4):
+            cb.step()
+        if interfere:
+            interfere()
+        cb.run_until_done()
+        return cb, [cb.finished[r] for r in rids]
+
+    solo_cb, solo = batch_run(None)
+    others = {}
+
+    def interfere():
+        t0 = time.perf_counter()
+        others["generate"] = rep.generate([9, 9], 2)
+        others["generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = ContinuousBatcher(rep, max_slots=MAX_SLOTS)
+        others["second_new_cache_s"] = time.perf_counter() - t0
+        second.add_request(prompts[-1], max_new=8)
+        second.run_until_done()
+        others["second"] = second
+
+    cb, got = batch_run(interfere)
+    exes = rep._executables[MAX_SLOTS]
+    second = others["second"]
+    require(got == solo,
+            f"a batcher's tokens changed when generate and a second batcher "
+            f"ran beside it: {sum(a == b for a, b in zip(got, solo))} of "
+            f"{len(solo)} requests equal")
+    require(len({id(solo_cb.cache), id(cb.cache), id(second.cache)}) == 3
+            and all(e.graph is not None for e in exes),
+            "the batchers do not decode on three captured caches")
+    emit("cache_owners", config=cfg.name, max_slots=MAX_SLOTS,
+         requests=len(prompts), tokens_equal_solo=True,
+         executables_of_batch=len(exes),
+         capture_s=[e.capture_s for e in exes],
+         second_new_cache_s=others["second_new_cache_s"],
+         generate_s=others["generate_s"],
+         compiled_executables=cache.compiled_executables(),
+         captured_graphs=cache.captured_graphs())
+    del rep, cb, solo_cb, second, exes, others
+    torch.cuda.empty_cache()
 
 
 def phase_container(cfg, process_serve: dict) -> None:
@@ -2122,6 +2321,9 @@ def probe_grad_refusal() -> list:
                                  t(2)),
         "grouped_matmul": lambda q: ops.grouped_matmul(
             q.reshape(64, 128), t(2, 128, 64),
+            torch.tensor([30, 34], device="cuda")),
+        "grouped_swiglu": lambda q: ops.grouped_swiglu(
+            q.reshape(64, 128), t(2, 128, 64), t(2, 128, 64),
             torch.tensor([30, 34], device="cuda")),
     }
     refused = []
@@ -3849,15 +4051,18 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     # not a Pallas kernel: lax.ragged_dot, the MoE's grouped GEMM
     "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                        "src/repro/models/moe.py:128"),
+    # lax.ragged_dot twice (gate, up) and silu(g) * u, fused
+    "grouped_swiglu": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                       "src/repro/models/moe.py:128"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "rwkv6-7b": ("wkv6",),
                 "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd"),
                 "arctic-480b": ("decode_attention", "flash_attention",
-                                "grouped_matmul"),
+                                "grouped_matmul", "grouped_swiglu"),
                 "kimi-k2-1t-a32b": ("decode_attention", "flash_attention",
-                                    "grouped_matmul"),
+                                    "grouped_matmul", "grouped_swiglu"),
                 "qwen2-vl-72b": ("decode_attention", "flash_attention"),
                 # the parent's in-process replicas that check the children
                 "smollm-360m/container": ("decode_attention",),
@@ -3870,7 +4075,7 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
                 "mesh/smollm-360m": ("decode_attention", "flash_attention"),
                 "mesh/arctic-480b": ("decode_attention", "flash_attention",
-                                     "grouped_matmul"),
+                                     "grouped_matmul", "grouped_swiglu"),
                 "mesh/train-smollm-360m": (),
                 "mesh/rwkv6-7b": ("wkv6",),
                 "mesh/zamba2-2.7b": ("decode_attention", "flash_attention",
@@ -3916,6 +4121,7 @@ def run_path(name, serve_records) -> dict:
     elif name == "smollm-360m":
         phase_model(cfg, fp32_depth=4)
         serve_records[name] = phase_serve(cfg)
+        phase_cache_owners(cfg)
     elif name == "rwkv6-7b":
         phase_model(cfg, fp32_depth=4, seq_chunk=64)
         phase_serve(cfg, reused_probe=True)

@@ -161,8 +161,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_grouped_gemm.restype = ci
     lib.repro_grouped_gemm.argtypes = [
         vp, vp, vp, vp,              # x, w, group_sizes, out
+        vp, vp, ci,                  # partial sums, info, max_split
         ci, ci, ci, ci,              # C, K, N, E
-        ci, vp]                      # is_bf16, stream
+        ci, ci, vp]                  # is_bf16, SM count, stream
+    lib.repro_grouped_swiglu.restype = ci
+    lib.repro_grouped_swiglu.argtypes = [
+        vp, vp, vp, vp, vp,          # x, w_gate, w_up, group_sizes, out
+        vp, vp, ci,                  # partial sums, info, max_split
+        ci, ci, ci, ci,              # C, K, N, E
+        ci, ci, vp]                  # is_bf16, SM count, stream
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_cuda_error_string.argtypes = [ci]
 

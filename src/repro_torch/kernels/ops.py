@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch.nn.functional as F
+
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
 from repro_torch.kernels import grouped_gemm as _gmm
@@ -24,7 +26,8 @@ from repro_torch.kernels import rwkv6_chunk as _k3
 from repro_torch.kernels import ssd_chunk as _k4
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.grouped_gemm import grouped_matmul_plain
+from repro_torch.kernels.grouped_gemm import (grouped_matmul_plain,
+                                              grouped_swiglu_plain)
 from repro_torch.kernels.rwkv6_chunk import wkv6_plain
 from repro_torch.kernels.ssd_chunk import ssd_plain
 
@@ -33,11 +36,13 @@ _flash_kernel = _k2.flash_attention
 _wkv6_kernel = _k3.wkv6
 _ssd_kernel = _k4.ssd
 _grouped_kernel = _gmm.grouped_matmul
+_swiglu_kernel = _gmm.grouped_swiglu
 _KERNELS = {"decode_attention": _decode_kernel,
             "flash_attention": _flash_kernel,
             "wkv6": _wkv6_kernel,
             "ssd": _ssd_kernel,
-            "grouped_matmul": _grouped_kernel}
+            "grouped_matmul": _grouped_kernel,
+            "grouped_swiglu": _swiglu_kernel}
 
 
 def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
@@ -100,6 +105,21 @@ def grouped_matmul(x, w, group_sizes, impl="kernel"):
         return grouped_matmul_plain(x, w, group_sizes)
     if impl == "reference":
         return ref.grouped_matmul_ref(x, w, group_sizes)
+    raise ValueError(impl)
+
+
+def grouped_swiglu(x, w_gate, w_up, group_sizes, impl="kernel"):
+    """The MoE's ``h``: ``silu(g) * u`` of ``g = grouped_matmul(x, w_gate)``
+    and ``u = grouped_matmul(x, w_up)``, each rounded to x's dtype first;
+    the kernel fuses the two products and the epilogue into one launch."""
+    if impl == "kernel":
+        return _swiglu_kernel(x, w_gate, w_up, group_sizes)
+    if impl == "plain":
+        return grouped_swiglu_plain(x, w_gate, w_up, group_sizes)
+    if impl == "reference":
+        g = ref.grouped_matmul_ref(x, w_gate, group_sizes)
+        u = ref.grouped_matmul_ref(x, w_up, group_sizes)
+        return (F.silu(g.float()) * u.float()).to(x.dtype)
     raise ValueError(impl)
 
 

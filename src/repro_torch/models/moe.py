@@ -12,18 +12,21 @@ Counterpart of ``repro.models.moe``. Same parameter keys and stacked shapes
      capacity ``C = min(max(int(T·k / n_shards · moe_capacity_factor), k),
      T·k)``: overflow drops, as in the reference;
   3. the grouped GEMM: ``lax.ragged_dot`` (an XLA primitive, not a Pallas
-     kernel) becomes ``ops.grouped_matmul``, routed by ``run.attn_impl``:
-     the hand-written kernel reads the group sizes on the device (no host
-     synchronisation, so a decode step can be captured as a CUDA graph);
-     the plain form, which training differentiates, loops ``torch.matmul``
-     over the contiguous groups after reading the sizes on the host. The
-     FSDP experts of a mesh keep that loop, a chunk of gathered experts at
-     a time; on meta tensors (the dry run) the ``C`` rows are split evenly
-     instead, which counts the same FLOPs as one product over them and
-     reads every local expert once;
-  4. ``silu(gate)·up`` in fp32 cast back to the model dtype, the down
-     projection, the renormalised weights, an fp32 ``index_add_`` back to
-     the token positions.
+     kernel) becomes ``ops.grouped_swiglu`` for the gate and up products
+     with ``silu(gate)·up`` (each product in the model dtype, the epilogue
+     in fp32 cast back), then ``ops.grouped_matmul`` for the down
+     projection, both routed by ``run.attn_impl``: the hand-written kernels
+     read the group sizes on the device (no host synchronisation, so a
+     decode step can be captured as a CUDA graph), and the fused pass reads
+     the packed rows once for both matrices; the plain forms, which
+     training differentiates, loop ``torch.matmul`` over the contiguous
+     groups after reading the sizes on the host. The FSDP experts of a
+     mesh keep that loop, a chunk of gathered experts at a time; on meta
+     tensors (the dry run) the ``C`` rows are split evenly instead, which
+     counts the same FLOPs as one product over them and reads every local
+     expert once;
+  4. the down projection's rows times the renormalised weights, an fp32
+     ``index_add_`` back to the token positions.
 
 On a mesh (``moe_ffn(..., mesh=)`` with a model axis of more than one
 rank) the experts are sharded over the model axis and the router is
@@ -207,15 +210,14 @@ def _local_moe(cfg: ArchConfig, run_cfg, w, x: torch.Tensor, *,
     xin = x[r.sel_tok].to(dt)                              # (C, D)
     meta = x.device.type == "meta"
     if not meta and gather is None:
-        # the grouped GEMM over the contiguous expert groups of the sorted
-        # rows; rows past the last group (not this shard's) come out 0
-        def gmm(a, b):
-            return ops.grouped_matmul(a, b, r.group_sizes,
-                                      impl=run_cfg.attn_impl)
-
-        g, u = gmm(xin, w["e_gate"]), gmm(xin, w["e_up"])
-        h = (F.silu(g.float()) * u.float()).to(dt)
-        return _combine(gmm(h, w["e_down"]), r, T, D)
+        # the grouped GEMMs over the contiguous expert groups of the sorted
+        # rows, gate and up fused with their epilogue; rows past the last
+        # group (not this shard's) come out 0
+        impl = run_cfg.attn_impl
+        h = ops.grouped_swiglu(xin, w["e_gate"], w["e_up"], r.group_sizes,
+                               impl=impl)
+        return _combine(ops.grouped_matmul(h, w["e_down"], r.group_sizes,
+                                           impl=impl), r, T, D)
     # FSDP experts (gathered a chunk at a time) and the dry run loop over
     # the groups; rows past the last group stay 0
     out = torch.zeros((xin.shape[0], D), dtype=dt, device=x.device)

@@ -8,8 +8,13 @@ Two layers:
     (``serving/exec_cache.py``): on a CUDA device a replay of the captured
     graph of ``decode_step``, the counterpart of the reference's
     ``jax.jit``; on the CPU the same step run eagerly on the same static
-    buffers. The executable owns the cache: ``new_cache(b)`` hands out (and
-    zeroes) the one of batch ``b``. This is what the live-mode worker hook
+    buffers. The executable owns the cache, and each user of a cache gets
+    one of its own, as the reference's ``new_cache`` builds a fresh cache
+    on every call: ``new_cache(b)`` hands out (zeroed) the cache of the
+    executable ``ExecutableCache.warm`` built for batch ``b`` the first
+    time, and later the cache of a fresh executable (warmed and captured
+    then); ``generate`` decodes on a batch-1 executable that no
+    ``new_cache`` hands out. This is what the live-mode worker hook
     instantiates per sandbox.
   * ``ContinuousBatcher`` — slot-based continuous batching on top of a
     Replica: a fixed (max_slots, max_seq) KV cache; new requests are admitted
@@ -26,7 +31,7 @@ under ``torch.inference_mode()``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -82,45 +87,65 @@ class Replica:
         else:
             self.model.load_state_dict(params)
         self.stats = {"requests": 0, "tokens": 0, "decode_steps": 0}
-        self._executables: Dict[int, DecodeExecutable] = {}
+        # batch -> its executables, the first the warmed one
+        self._executables: Dict[int, List[DecodeExecutable]] = {}
+        self._taken: Set[DecodeExecutable] = set()   # a user holds its cache
+        self._generate_exe: Optional[DecodeExecutable] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return self.model.state_dict()
 
+    def _shape(self, batch: int) -> ShapeSpec:
+        return ShapeSpec("serve", self.max_seq, batch, "decode")
+
     def executable(self, batch: int) -> DecodeExecutable:
-        """The decode executable of ``batch`` rows at ``max_seq``, warmed
-        (and on a CUDA device captured) through the cache on first use."""
-        exe = self._executables.get(batch)
-        if exe is None:
+        """The first decode executable of ``batch`` rows at ``max_seq``
+        (the one ``ExecutableCache.warm`` builds), warmed (and on a CUDA
+        device captured) through the cache on first use."""
+        exes = self._executables.get(batch)
+        if not exes:
+            exes = self._executables[batch] = [self.exec_cache.executable(
+                self.cfg, self._shape(batch), self.run_cfg, model=self.model)]
+        return exes[0]
+
+    def _take(self, batch: int) -> DecodeExecutable:
+        """An executable of ``batch`` rows whose cache no user holds: the
+        first, unless a user took it, else a fresh one (warmed, and on a
+        CUDA device captured, now)."""
+        exe = self.executable(batch)
+        if exe in self._taken:
             exe = self.exec_cache.executable(
-                self.cfg, ShapeSpec("serve", self.max_seq, batch, "decode"),
-                self.run_cfg, model=self.model)
-            self._executables[batch] = exe
+                self.cfg, self._shape(batch), self.run_cfg, model=self.model,
+                fresh=True)
+            self._executables[batch].append(exe)
+        self._taken.add(exe)
         return exe
 
     def _decode(self, cache, batch):
-        """One step on ``cache``, which must be ``new_cache``'s of that
-        batch size: -> (logits, cache). The logits are the executable's
-        static output, overwritten by its next step."""
-        exe = self.executable(len(batch["tokens"]))
-        if cache is not exe.cache:
-            raise ValueError("a replica decodes on the cache its executable "
-                             "owns: take it from new_cache()")
-        return exe(batch["tokens"], batch["cache_len"]), exe.cache
+        """One step on ``cache``, which must come from ``new_cache`` with
+        that batch size: -> (logits, cache). The logits are the
+        executable's static output, overwritten by its next step."""
+        for exe in self._executables.get(len(batch["tokens"]), ()):
+            if cache is exe.cache:
+                return exe(batch["tokens"], batch["cache_len"]), exe.cache
+        raise ValueError("a replica decodes on the cache its executable "
+                         "owns: take it from new_cache()")
 
     def new_cache(self, batch: int):
-        """The zeroed cache of the executable of ``batch`` rows (one per
-        batch size and replica)."""
-        exe = self.executable(batch)
+        """A zeroed cache of ``batch`` rows that no other user holds, owned
+        by an executable of this replica."""
+        exe = self._take(batch)
         exe.reset()
         return exe.cache
 
     def generate(self, prompt_tokens: List[int], max_new_tokens: int = 16,
                  temperature: float = 0.0, seed: int = 0) -> List[int]:
         """Single-request generation (prompt consumed via decode steps) on
-        the batch-1 executable, whose cache is zeroed first."""
-        exe = self.executable(1)
+        a batch-1 executable of its own, whose cache is zeroed first."""
+        if self._generate_exe is None:
+            self._generate_exe = self._take(1)
+        exe = self._generate_exe
         exe.reset()
         toks = list(prompt_tokens)
         out: List[int] = []

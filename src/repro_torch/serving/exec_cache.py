@@ -9,8 +9,10 @@ compiles it per signature in ``warm()``. On CUDA the counterpart of a
 compiled program is a captured CUDA graph: ``DecodeExecutable`` records one
 decode step of a model into a graph and replays it. A graph binds
 addresses (the replica's parameters and one cache), so unlike an XLA
-executable it cannot be shared between replicas: there is one executable
-per (replica model, signature), and it owns the cache it was captured on.
+executable it cannot be shared between replicas, nor between two users of
+one replica: an executable owns the cache it was captured on, and a
+replica has one per (signature, user of a cache): the one ``warm`` builds,
+and a fresh one for each further cache it hands out (``Replica.new_cache``).
 
 What a first replica of a configuration pays and a later one does not:
 
@@ -29,8 +31,9 @@ Keying is ``(ArchConfig, RunConfig, mode)`` as in the reference (frozen
 dataclasses, so they hash structurally), plus a per-entry ``shapes`` table
 of the decode signatures ``(cache length, batch, device type)`` that have
 been warmed. ``compiled_executables()`` counts those signatures, as the
-reference counts its jit's traces: a second replica of one configuration
-adds zero. ``stats()["captured_graphs"]`` counts the graphs alive.
+reference counts its jit's traces: a second replica of one configuration,
+or a second cache of one replica, adds zero. ``stats()["captured_graphs"]``
+counts the graphs alive, every executable of a signature included.
 """
 from __future__ import annotations
 
@@ -234,8 +237,9 @@ class CacheEntry:
     model: object = None           # parameter-free skeleton (meta device)
     # (cache length, batch, device type) -> wall seconds of its first warm
     shapes: Dict[Tuple[int, int, str], float] = field(default_factory=dict)
-    # replica model -> {(cache length, batch): its DecodeExecutable}; held
-    # weakly, so a replica's graphs and cache go with it
+    # replica model -> {(cache length, batch): its DecodeExecutables}, the
+    # first the one ``warm`` built, each later one a cache of its own; held
+    # weakly, so a replica's graphs and caches go with it
     executables: "weakref.WeakKeyDictionary" = field(
         default_factory=weakref.WeakKeyDictionary)
 
@@ -246,8 +250,10 @@ class CacheEntry:
 
     def executable(self, model, shape: ShapeSpec
                    ) -> Optional[DecodeExecutable]:
-        return self.executables.get(model, {}).get(
+        """``model``'s first executable of ``shape`` (the warmed one)."""
+        exes = self.executables.get(model, {}).get(
             (shape.seq_len, shape.global_batch))
+        return exes[0] if exes else None
 
     def compiled_executables(self) -> int:
         """Decode signatures warmed so far (the regression-test
@@ -256,8 +262,8 @@ class CacheEntry:
 
     def captured_graphs(self) -> int:
         return sum(exe.graph is not None
-                   for exes in list(self.executables.values())
-                   for exe in exes.values())
+                   for by_shape in list(self.executables.values())
+                   for exes in by_shape.values() for exe in exes)
 
 
 class ExecutableCache:
@@ -303,14 +309,14 @@ class ExecutableCache:
                     self.evictions += 1
             return entry
 
-    def _warm(self, cfg, shape, run_cfg, mode, model, device):
+    def _warm(self, cfg, shape, run_cfg, mode, model, device, fresh=False):
         device = model.device if model is not None else resolve_device(device)
         entry = self.get(cfg, run_cfg, mode)
         key = (shape.seq_len, shape.global_batch, device.type)
         new = key not in entry.shapes
-        if not new and (model is None
-                        or entry.executable(model, shape) is not None):
-            return entry, 0.0
+        if not new and not fresh and (
+                model is None or entry.executable(model, shape) is not None):
+            return entry, 0.0, None
         if model is None:
             model = entry.instantiate(device).init_params(
                 torch.Generator(device=device).manual_seed(0))
@@ -321,12 +327,12 @@ class ExecutableCache:
         sync(device)
         dt = time.perf_counter() - t0
         self.warm_steps += exe.warm_steps
-        entry.executables.setdefault(model, {})[
-            (shape.seq_len, shape.global_batch)] = exe
+        entry.executables.setdefault(model, {}).setdefault(
+            (shape.seq_len, shape.global_batch), []).append(exe)
         if not new:
-            return entry, 0.0
+            return entry, 0.0, exe
         entry.shapes[key] = dt
-        return entry, dt
+        return entry, dt, exe
 
     def warm(self, cfg: ArchConfig, shape: ShapeSpec,
              run_cfg: Optional[RunConfig] = None, mode: str = "process",
@@ -344,11 +350,15 @@ class ExecutableCache:
 
     def executable(self, cfg: ArchConfig, shape: ShapeSpec,
                    run_cfg: Optional[RunConfig] = None,
-                   mode: str = "process", *, model) -> DecodeExecutable:
-        """``model``'s decode executable of ``shape``, warmed first if it
-        has none."""
-        entry, _ = self._warm(cfg, shape, run_cfg, mode, model, None)
-        return entry.executable(model, shape)
+                   mode: str = "process", *, model,
+                   fresh: bool = False) -> DecodeExecutable:
+        """``model``'s first decode executable of ``shape``, warmed first if
+        it has none; with ``fresh``, a new one beside those it has (its own
+        cache, warmed and on a CUDA device captured; the signature is not
+        new, so ``compiled_executables`` does not move)."""
+        entry, _, exe = self._warm(cfg, shape, run_cfg, mode, model, None,
+                                   fresh)
+        return exe if fresh else entry.executable(model, shape)
 
     def compiled_executables(self) -> int:
         return sum(e.compiled_executables() for e in self._entries.values())

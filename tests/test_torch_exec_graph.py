@@ -8,14 +8,17 @@ lengths, the cache it owns, the logits it returns). What is held here is
 that form: its logits equal ``decode_step``'s, a replica's greedy tokens
 through it equal the JAX ``Replica``'s, its cache is re-zeroed per request,
 one-length models still refuse differing lengths, the decode bodies read
-nothing on the host on its static inputs (what a capture needs), and a
-replay adds the launches its capture counted. The graph itself is built and
+nothing on the host on its static inputs (what a capture needs), a replay
+adds the launches its capture counted, and each user of ``new_cache`` (a
+batcher, ``generate``) decodes on a cache of its own, as the reference's
+fresh cache per call. The graph itself is built and
 replayed on the card by ``chip_smoke.py``."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.serving.engine import ContinuousBatcher as JBatcher  # noqa: E402
 from repro.serving.engine import Replica as JReplica  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -147,6 +150,78 @@ def test_decode_takes_only_the_owned_cache():
     with pytest.raises(ValueError, match="new_cache"):
         rep._decode(rep.model.init_cache(ShapeSpec("t", 32, 1, "decode"),
                                          batch=1), batch)
+
+
+# -- each user of new_cache owns its cache (the reference builds one a call) ----
+
+C12_PROMPT = [3, 1, 4, 1, 5]
+
+
+@pytest.fixture(scope="module")
+def smollm_jax():
+    """The JAX replica and its weights as numpy, for fresh port replicas."""
+    cj, ct = reduced_pair("smollm-360m", **KW)
+    jrep = JReplica(cj, max_seq=64)
+    return jrep, ct, jax_tree_to_numpy(jrep.params)
+
+
+def _interfered(rep, batcher, case):
+    """A one-slot batcher's request, with another user of the replica
+    coming in after 4 steps: nothing, a ``generate``, or a second batcher of
+    the same batch size that serves a request of its own."""
+    cb = batcher(rep, max_slots=1)
+    rid = cb.add_request(C12_PROMPT, max_new=6)
+    for _ in range(4):
+        cb.step()
+    if case == "after-generate":
+        rep.generate([9, 9], 2)
+    elif case == "second-batcher":
+        other = batcher(rep, max_slots=1)
+        other.add_request([7, 7], max_new=2)
+        other.run_until_done()
+    cb.run_until_done()
+    return cb.finished[rid]
+
+
+@pytest.mark.parametrize("case", ["alone", "after-generate",
+                                  "second-batcher"])
+def test_each_new_cache_is_its_users_own(smollm_jax, case):
+    jrep, ct, params = smollm_jax
+    trep = Replica(ct, max_seq=64, exec_cache=ExecutableCache(),
+                   device="cpu")
+    convert.load_params(trep.model, params)
+    want = _interfered(jrep, JBatcher, case)
+    assert want == jrep.generate(C12_PROMPT, max_new_tokens=6)
+    assert _interfered(trep, ContinuousBatcher, case) == want
+
+
+def test_second_new_cache_captures_a_graph_not_a_signature(monkeypatch):
+    """On a replica whose warm-ups fake a capture, a second cache of one
+    signature is a second executable with a graph of its own, and no new
+    signature; ``generate``'s batch-1 executable is neither."""
+    warm = DecodeExecutable.warm
+
+    def fake_capture(self, steps=2):
+        warm(self, steps)
+        self.graph = _FakeGraph(self)
+
+    monkeypatch.setattr(DecodeExecutable, "warm", fake_capture)
+    cache = ExecutableCache()
+    rep = Replica(get_config("smollm-360m").reduced(**KW), max_seq=32,
+                  exec_cache=cache, device="cpu")
+    first = rep.new_cache(2)
+    assert first is rep.executable(2).cache
+    assert cache.stats()["captured_graphs"] == 1
+    assert cache.stats()["compiled_executables"] == 1
+    second = rep.new_cache(2)
+    assert second is not first and second is rep._executables[2][1].cache
+    assert cache.stats()["captured_graphs"] == 2
+    assert cache.stats()["compiled_executables"] == 1
+    cache_1 = rep.new_cache(1)
+    assert cache_1 is rep.executable(1).cache
+    assert rep._take(1).cache is not cache_1       # generate's own
+    assert cache.stats()["captured_graphs"] == 4
+    assert cache.stats()["compiled_executables"] == 2
 
 
 def test_zamba2_differing_lengths_raise_through_the_executable():

@@ -6,9 +6,10 @@ its plain version there); what is held against the reference's
 ``jax.lax.ragged_dot`` here is the plain version the wrapper takes on a CPU
 tensor, and the per-row oracle of ``ref.py``, on the same numpy inputs from
 a seed: 2e-5 in fp32, 2e-2 in bf16 (both sides round the same numpy input,
-one bf16 rounding of outputs of magnitude <= ~4). Then the MoE layer's
-``_local_moe`` on the op, at reduced arctic-480b and kimi-k2, against the
-reference's."""
+one bf16 rounding of outputs of magnitude <= ~4). The fused gate/up pass
+``grouped_swiglu`` likewise, against two ``ragged_dot`` and the reference's
+epilogue. Then the MoE layer's ``_local_moe`` on the ops, at reduced
+arctic-480b and kimi-k2, against the reference's."""
 import numpy as np
 import pytest
 
@@ -20,8 +21,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro.models.api import RunConfig as JRun  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.grouped_gemm import (grouped_matmul,  # noqa: E402
-                                              grouped_matmul_plain)
+from repro_torch.kernels.grouped_gemm import (  # noqa: E402
+    grouped_matmul, grouped_matmul_plain, grouped_swiglu,
+    grouped_swiglu_plain)
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.api import RunConfig  # noqa: E402
 from torch_port_util import as_np, reduced_pair, to_jax, to_torch  # noqa: E402
@@ -106,6 +108,58 @@ def test_kernel_refuses_grad_and_the_plain_form_differentiates():
     assert xt.grad[:int(gs.sum())].abs().sum() > 0
 
 
+def _swiglu_inputs(C, K, N, sizes, seed=0):
+    x, wg, gs = _inputs(C, K, N, sizes, seed)
+    wu = _inputs(C, K, N, sizes, seed + 100)[1]
+    return x, wg, wu, gs
+
+
+def _swiglu_ref(x, wg, wu, sizes, jdt):
+    """The reference's h (src/repro/models/moe.py:128-131)."""
+    g = _ragged_dot(x, wg, sizes, jdt)
+    u = _ragged_dot(x, wu, sizes, jdt)
+    return (jax.nn.silu(g.astype(jnp.float32)) * u.astype(jnp.float32)
+            ).astype(jdt)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_plain_matches_ragged_dot(case, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    C, K, N, sizes = CASES[case]
+    x, wg, wu, gs = _swiglu_inputs(C, K, N, sizes)
+    want = _swiglu_ref(x, wg, wu, gs, jdt)
+    got = grouped_swiglu_plain(to_torch(x, tdt), to_torch(wg, tdt),
+                               to_torch(wu, tdt), torch.from_numpy(gs))
+    assert got.dtype == tdt and got.shape == (C, N)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=tol, rtol=tol)
+    tail = int(gs.sum())
+    assert not as_np(got)[tail:].any() and not as_np(want)[tail:].any()
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain", "reference"])
+def test_swiglu_ops_dispatch_agrees(impl):
+    x, wg, wu, gs = _swiglu_inputs(*CASES["decode-like"], seed=7)
+    want = _swiglu_ref(x, wg, wu, gs, jnp.float32)
+    for sizes in (torch.from_numpy(gs), torch.from_numpy(gs).long()):
+        got = ops.grouped_swiglu(to_torch(x), to_torch(wg), to_torch(wu),
+                                 sizes, impl=impl)
+        np.testing.assert_allclose(as_np(got), as_np(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_swiglu_kernel_refuses_grad():
+    x, wg, wu, gs = _swiglu_inputs(*CASES["empty-groups"], seed=8)
+    for i in range(3):
+        args = [to_torch(x), to_torch(wg), to_torch(wu)]
+        args[i].requires_grad_(True)
+        with pytest.raises(RuntimeError, match='attn_impl="plain"'):
+            grouped_swiglu(*args, torch.from_numpy(gs))
+    assert grouped_swiglu(to_torch(x), to_torch(wg), to_torch(wu),
+                          torch.from_numpy(gs)).shape == x.shape[:1] + (
+        wg.shape[2],)
+
+
 def _moe_weights(cfg, seed):
     rng = np.random.default_rng(seed)
     e, d = cfg.moe, cfg.d_model
@@ -139,18 +193,25 @@ def test_local_moe_on_the_op_matches_jax(name, tokens):
 
 
 def test_local_moe_reaches_the_op(monkeypatch):
-    """One device without FSDP experts goes through ``ops.grouped_matmul``
-    three times (gate, up, down), as the reference calls ragged_dot."""
+    """One device without FSDP experts makes two grouped launches a layer:
+    ``ops.grouped_swiglu`` (gate and up, fused with their epilogue), then
+    ``ops.grouped_matmul`` (down), where the reference calls ragged_dot
+    three times."""
     _, ct = reduced_pair("arctic-480b")
     w = {k: torch.from_numpy(v) for k, v in _moe_weights(ct, 6).items()}
     calls = []
-    real = ops.grouped_matmul
 
-    def spy(*a, **kw):
-        calls.append(kw.get("impl"))
-        return real(*a, **kw)
+    def spy(name):
+        real = getattr(ops, name)
 
-    monkeypatch.setattr(ops, "grouped_matmul", spy)
+        def call(*a, **kw):
+            calls.append((name, kw.get("impl")))
+            return real(*a, **kw)
+        return call
+
+    for name in ("grouped_swiglu", "grouped_matmul"):
+        monkeypatch.setattr(ops, name, spy(name))
     TM._local_moe(ct, RunConfig(), w, torch.randn(4, ct.d_model),
                   n_shards=1, shard_id=0)
-    assert calls == ["kernel"] * 3
+    assert calls == [("grouped_swiglu", "kernel"),
+                     ("grouped_matmul", "kernel")]

@@ -283,7 +283,7 @@ def test_ops_dispatch_recurrences_on_the_cpu():
     # no kernel was launched on the CPU, so no counter moved
     assert ops.launch_counts() == before
     assert set(before) == {"decode_attention", "flash_attention", "wkv6",
-                           "ssd", "grouped_matmul"}
+                           "ssd", "grouped_matmul", "grouped_swiglu"}
 
 
 # -- attention at head_dim 80 (zamba2-2.7b's shared block) --------------------
