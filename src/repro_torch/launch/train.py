@@ -3,12 +3,18 @@ with checkpoint/restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --reduced --steps 100 [--resume] [--zero1] [--grad-accum 4] \
-        [--compress] [--device cuda|cpu]
+        [--compress] [--device cuda|cpu] [--eager]
     torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --zero1
 
 Counterpart of ``repro.launch.train``: the same arguments and printed lines,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the same path on the
-host). The mesh is the reference's ``make_local_mesh()``: ``(world, 1)``
+host) and ``--eager``. On one CUDA rank the step is captured as a CUDA
+graph and replayed (``train_step.TrainExecutable``), as the reference jits
+it; a mesh above one rank, the MoE family and ``--compress`` stay eager
+(``train_step.eager_reason``), as does the CPU, where there is nothing to
+capture; ``--eager`` asks for eager steps where the rule would capture.
+The loss is read on the host every 20 steps and at the end, as the
+reference reads it. The mesh is the reference's ``make_local_mesh()``: ``(world, 1)``
 over the default process group, which this launcher initialises over gloo
 from ``torchrun``'s environment (``env://``), or as a group of one process
 (the mesh ``(1, 1)``) when started alone. Each rank trains on its rows of
@@ -42,7 +48,8 @@ from repro_torch.train.checkpoint import (latest_step, named_shardings,
                                           restore_checkpoint, save_checkpoint)
 from repro_torch.train.data import ZipfLMStream
 from repro_torch.train.optimizer import adamw_init
-from repro_torch.train.train_step import (make_train_step, optimizer_pspecs,
+from repro_torch.train.train_step import (TrainExecutable, eager_reason,
+                                          make_train_step, optimizer_pspecs,
                                           trainable)
 
 
@@ -71,6 +78,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="step eagerly where the step would be captured")
     return ap
 
 
@@ -79,11 +88,18 @@ class Trainer:
     with ``mesh``, this rank's part of a run over it (the batch split over
     the data axis, the parameters this rank's shards of a model axis above
     one, the moments sharded over data under ``RunConfig.use_zero1``). What ``main`` drives, and what a caller that
-    wants the step itself (and its timings) drives directly."""
+    wants the step itself (and its timings) drives directly.
+
+    ``compiled``: None runs the step as ``eager_reason`` rules (captured
+    on one CUDA rank, eager elsewhere), True asks for the
+    ``TrainExecutable`` and raises where the rule says no (on the CPU it
+    runs its body eagerly on its static tensors), False steps eagerly.
+    ``self.compiled`` says which runs."""
 
     def __init__(self, cfg, run: RunConfig, *, seq: int, batch: int,
                  lr: float, seed: int = 0, device=None,
-                 mesh: Optional[S.Mesh] = None):
+                 mesh: Optional[S.Mesh] = None,
+                 compiled: Optional[bool] = None):
         self.device = resolve_device(device)
         self.cfg, self.seq, self.batch, self.mesh = cfg, seq, batch, mesh
         with S.use_mesh(mesh):
@@ -95,8 +111,27 @@ class Trainer:
         self.opt = adamw_init(self.params, self.model.param_pspecs(),
                               self.pspecs.mu, mesh)
         self.step_fn = make_train_step(self.model, lr=lr, mesh=mesh)
+        self.eager_reason = eager_reason(cfg, run, mesh)
+        if compiled is None:
+            compiled = self.eager_reason is None \
+                and self.device.type == "cuda"
+        elif compiled and self.eager_reason is not None:
+            raise ValueError(f"{cfg.name}: the train step cannot be "
+                             f"captured: {self.eager_reason}")
+        self.exe = None
+        if compiled:
+            shape = torch.empty((batch, seq), dtype=torch.int32,
+                                device="meta")
+            self.exe = TrainExecutable(
+                self.step_fn, self.opt, {"tokens": shape, "labels": shape},
+                self.device, who=cfg.name)
         self.stream = ZipfLMStream(vocab=cfg.vocab, seq=seq, batch=batch,
                                    seed=seed + 1, device=self.device)
+
+    @property
+    def compiled(self) -> bool:
+        """Whether the steps run through the ``TrainExecutable``."""
+        return self.exe is not None
 
     def state(self) -> dict:
         return {"params": self.params, "opt": self.opt}
@@ -127,14 +162,26 @@ class Trainer:
         with torch.no_grad():
             for k, p in self.params.items():
                 p.copy_(state["params"][k])
-        self.opt = state["opt"]
+            if self.exe is None:
+                self.opt = state["opt"]
+                return at
+            # the executable's graph reads and writes its own tensors
+            for mine, theirs in ((self.opt.mu, state["opt"].mu),
+                                 (self.opt.nu, state["opt"].nu)):
+                for k, t in mine.items():
+                    t.copy_(theirs[k])
+            self.opt.step.copy_(state["opt"].step)
         return at
 
     def step(self, i: int) -> dict:
         """Train step ``i`` on batch ``i`` of the stream, the codec's noise
-        from a generator seeded with ``i``."""
+        from a generator seeded with ``i``. The metrics are 0-d device
+        tensors of this step (copies of the executable's)."""
+        batch = self.stream.batch_at(i)
+        if self.exe is not None:
+            return {k: v.clone() for k, v in self.exe(batch).items()}
         g = torch.Generator(device=self.device).manual_seed(i)
-        self.opt, m = self.step_fn(self.opt, self.stream.batch_at(i), g)
+        self.opt, m = self.step_fn(self.opt, batch, g)
         return m
 
 
@@ -176,12 +223,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
 def _train(args, cfg, mesh, device) -> dict:
     tr = Trainer(cfg, run_config(args.grad_accum, args.compress, args.zero1),
                  seq=args.seq, batch=args.batch, lr=args.lr, seed=args.seed,
-                 device=device, mesh=mesh)
+                 device=device, mesh=mesh,
+                 compiled=False if args.eager else None)
     lead = dist.get_rank() == 0
     n = sum(p.numel() for p in tr.params.values())
     if lead:
         print(f"[train] {cfg.name}: {n/1e6:.1f}M params on {tr.device}, "
-              f"mesh {mesh.shape}")
+              f"mesh {mesh.shape}, compiled {tr.compiled}")
 
     start = 0
     if args.resume and latest_step(args.ckpt_dir) is not None:
@@ -189,22 +237,28 @@ def _train(args, cfg, mesh, device) -> dict:
         if lead:
             print(f"[train] resumed from step {start}")
 
-    losses, writer = [], None
+    # each step's loss stays on the device until a read every 20 steps and
+    # at the end, the reference's cadence
+    losses, pending, writer = [], [], None
     t0 = time.time()
     for i in range(start, start + args.steps):
         m = tr.step(i)
-        losses.append(float(m["loss"]))
+        pending.append(m["loss"])
         if (i + 1) % args.ckpt_every == 0:
             if writer is not None:
                 writer.join()
             writer = tr.save(args.ckpt_dir, i + 1, async_save=True)
         if (i + 1) % 20 == 0:
+            losses += torch.stack(pending).tolist()
+            pending = []
             sync(tr.device)
             tps = args.batch * args.seq * 20 / (time.time() - t0)
             t0 = time.time()
             if lead:
                 print(f"[train] step {i+1:5d} loss {losses[-1]:.4f} "
                       f"gnorm {float(m['grad_norm']):.2f} {tps:,.0f} tok/s")
+    if pending:
+        losses += torch.stack(pending).tolist()
     if writer is not None:
         writer.join()
     end = start + args.steps

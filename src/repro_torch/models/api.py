@@ -27,8 +27,11 @@ class RunConfig:
     """Execution knobs (orthogonal to the architecture). Same fields as the
     reference so one (ArchConfig, RunConfig) pair keys both packages; the
     mesh's fields (``data_axes``, ``model_axis``, ``sharded_decode``,
-    ``fsdp_experts``, ``use_zero1``) are read on a mesh, the fields that
-    steer scan and remat are carried but not read. One default differs:
+    ``fsdp_experts``, ``use_zero1``) are read on a mesh; ``remat`` and
+    ``remat_policy`` checkpoint each layer of a forward that records
+    gradients (``models/remat.py``; only ``DecoderLM`` reads the policy,
+    as in the reference); the fields that steer the scan (``layer_mode``,
+    ``attn_unroll``) are carried but not read. One default differs:
     ``seq_chunk``."""
 
     attn_impl: str = "kernel"     # kernel | plain | reference

@@ -11,8 +11,10 @@ an untied ``lm_head``. Differences that come with PyTorch's idiom, as for
 
   * an ``nn.Module`` that owns its parameters under the reference tree's
     keys, layers stacked on a leading ``L`` axis (``layers.{ln1, w_r, ...}``);
-  * a Python loop over ``L`` where the reference scans; no remat;
-    ``loss_fn`` trains through the plain WKV6 form (``attn_impl="plain"``:
+  * a Python loop over ``L`` where the reference scans; with
+    ``RunConfig.remat`` each block of ``forward`` is checkpointed while
+    gradients are recorded (``models/remat.py``), as the reference's
+    ``jax.checkpoint``; ``loss_fn`` trains through the plain WKV6 form (``attn_impl="plain"``:
     the kernel has no backward); serving calls it under
     ``torch.inference_mode()``;
   * ``decode_step`` writes the state into the cache in place and returns
@@ -68,6 +70,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import wkv6_decode
 from repro_torch.models import layers as L
+from repro_torch.models import remat
 from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.sharding import P
@@ -359,9 +362,13 @@ class RWKV6Model(nn.Module):
         z = dict(dtype=torch.float32, device=self.device)
         state = (torch.zeros((b, h, hd, hd), **z), torch.zeros((b, d), **z),
                  torch.zeros((b, d), **z))
+
+        def block(x, w):
+            return self._block(w, x, state, decode=False)[0]
+
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
-            x, _ = self._block(w, x, state, decode=False)
+            x = remat.layer(self.run, block, x, w)
         return self._logits(x)
 
     def loss_fn(self, batch) -> torch.Tensor:

@@ -442,6 +442,11 @@ def log_collectives(log: CollectiveLog):
         _LOG.reset(token)
 
 
+def get_log() -> Optional[CollectiveLog]:
+    """The active collective log, or None."""
+    return _LOG.get()
+
+
 def _collective(kind: str, out: torch.Tensor, n_out: int, g, call,
                 log: Optional[CollectiveLog] = None) -> None:
     """Run ``call()``, a collective over group ``g`` whose result buffer is

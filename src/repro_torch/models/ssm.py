@@ -12,7 +12,9 @@ through ``ops.flash_attention`` / ``ops.decode_attention`` as in
 leading ``(n_super, per_super)`` axes, ``shared.*``, ``embed``,
 ``final_norm``, ``lm_head``. ``loss_fn`` trains through the plain SSD and
 attention forms (``attn_impl="plain"``: the kernels have no backward);
-serving calls it under ``torch.inference_mode()``. ``decode_step`` writes
+with ``RunConfig.remat`` a ``forward`` that records gradients checkpoints
+each mixer block and each call of the shared block on its own
+(``models/remat.py``), as the reference does; serving calls it under ``torch.inference_mode()``. ``decode_step`` writes
 the caches in place and returns the cache it was given.
 
 ``decode_step`` takes one ``cache_len`` for the whole batch, as the
@@ -72,6 +74,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.chunked import ssd_decode
 from repro_torch.models import layers as L
+from repro_torch.models import remat
 from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.distributed_attention import \
@@ -423,11 +426,17 @@ class Zamba2Model(nn.Module):
         z = dict(dtype=torch.float32, device=self.device)
         state = (torch.zeros((b, self._hl, s.head_dim, s.d_state), **z),
                  torch.zeros((b, s.conv_width - 1, self._chl), **z))
+
+        def mamba(x, w):
+            return self._mamba_block(w, x, state, decode=False)[0]
+
+        # the reference checkpoints the mamba and the shared block each on
+        # its own
         for i in range(self.n_super):
             for j in range(self.per_super):
                 w = {k: p[i, j] for k, p in self.mamba.items()}
-                x, _ = self._mamba_block(w, x, state, decode=False)
-            x = self._shared_block(x, rope)
+                x = remat.layer(self.run, mamba, x, w)
+            x = remat.layer(self.run, self._shared_block, x, rope)
         return self._logits(x)
 
     def loss_fn(self, batch) -> torch.Tensor:

@@ -8,8 +8,11 @@ with PyTorch's idiom:
     tree's keys and the stacked leading ``L`` axis (``embed``,
     ``final_norm``, ``layers.{ln1,ln2,wq,wk,wv,wo,...}``, optional
     ``lm_head``), so one converter serves every model;
-  * a Python loop over ``L`` stands where the reference scans; there is no
-    remat and no sharding constraint (the mesh below);
+  * a Python loop over ``L`` stands where the reference scans, and there
+    is no sharding constraint (the mesh below); with ``RunConfig.remat``
+    each layer of a forward that records gradients is checkpointed
+    (``models/remat.py``, ``remat_policy`` "full" or "dots"), as the
+    reference wraps its scan body in ``jax.checkpoint``;
   * attention goes through ``repro_torch.kernels.ops``: with
     ``RunConfig.attn_impl == "kernel"`` a CUDA tensor reaches the
     hand-written flash-attention (``forward``) and flash-decode
@@ -97,6 +100,7 @@ from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import remat
 from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.distributed_attention import (
@@ -392,11 +396,18 @@ class DecoderLM(nn.Module):
                 write_at = cache_len.reshape(1)
         attn = self._attn_tp if self.n_model > 1 and not self._kv_sharded \
             else self._attn
+
+        def block(x, w, kv):
+            x = x + attn(w, x, rope, kv, write_at, attn_len)
+            return x + self._mlp(w, x)
+
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
-            kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x = x + attn(w, x, rope, kv, write_at, attn_len)
-            x = x + self._mlp(w, x)
+            if cache is None:       # the reference's remat: no decode step
+                x = remat.layer(self.run, block, x, w, None,
+                                policy=self.run.remat_policy)
+            else:
+                x = block(x, w, (cache["k"][i], cache["v"][i]))
         return x
 
     def _embed(self, tokens):

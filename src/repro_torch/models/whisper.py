@@ -26,7 +26,9 @@ attention, ``m``/``w_``/``b_`` MLP). Attention goes through
 Differences that come with PyTorch's idiom: an ``nn.Module`` owning its
 parameters (made with ``requires_grad=False``; ``loss_fn`` trains on the
 plain forms, ``attn_impl="plain"``), a Python loop over the layers where
-the reference scans, ``prefill_cross`` and ``decode_step`` writing the
+the reference scans (with ``RunConfig.remat`` each decoder layer of a
+``forward`` that records gradients is checkpointed, ``models/remat.py``;
+the encoder's are not, as in the reference), ``prefill_cross`` and ``decode_step`` writing the
 cache in place and returning the cache they were given, and ``frames``
 taken in the model's dtype (PyTorch multiplies no mixed dtypes; the
 reference would promote an fp32 input to an fp32 residual stream).
@@ -62,6 +64,7 @@ from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import remat
 from repro_torch.models import sharding as S
 from repro_torch.models.api import RunConfig
 from repro_torch.models.sharding import P
@@ -379,11 +382,17 @@ class WhisperModel(nn.Module):
         tokens = batch["tokens"].to(self.device)
         x = self._embed(tokens, torch.arange(tokens.shape[1],
                                              device=self.device))
-        for i in range(self.cfg.n_layers):
-            w = {k: p[i] for k, p in self.decoder.items()}
+
+        def block(x, w):
             x = self._self_attn(w, x, causal=True)
             x = self._cross_attn(w, x, self._enc_kv(w, enc_out))
-            x = self._mlp(w, x)
+            return self._mlp(w, x)
+
+        # the decoder's layers are checkpointed, the encoder's are not, as
+        # in the reference
+        for i in range(self.cfg.n_layers):
+            w = {k: p[i] for k, p in self.decoder.items()}
+            x = remat.layer(self.run, block, x, w)
         return self._logits(x)
 
     def loss_fn(self, batch) -> torch.Tensor:

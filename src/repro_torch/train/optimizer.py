@@ -171,8 +171,10 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
         gnorm = torch.zeros((), dtype=torch.float32, device=dev)
         scale = torch.ones((), dtype=torch.float32, device=dev)
     stepf = step.float()
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
+    # the bases are filled on the device: a host value copied there would
+    # synchronise, which a captured step (``TrainExecutable``) cannot hold
+    bc1 = 1.0 - torch.pow(torch.full((), b1, device=dev), stepf)
+    bc2 = 1.0 - torch.pow(torch.full((), b2, device=dev), stepf)
     for k, full in params.items():
         part = _zero1_part(k, param_pspecs, mu_pspecs, mesh)
         sl = None if part is None else S.local_slices(full.shape, part,

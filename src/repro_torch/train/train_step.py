@@ -26,9 +26,16 @@ slice, as its ``param_pspecs`` say, and a replicated leaf's the whole on
 every model rank. A leaf sharded over data axes too (FSDP experts) had its
 gradient summed over them by the gather's reduce-scatter: it is only
 divided.
+
+``TrainExecutable`` is the counterpart of the reference's
+``jax.jit(make_train_step(...))``: on CUDA the step captured as a CUDA
+graph and replayed (``eager_reason`` says which configurations are
+captured, and why the others are not).
 """
 from __future__ import annotations
 
+import math
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -139,6 +146,141 @@ def make_train_step(model, lr: float = 3e-4, weight_decay: float = 0.1,
                            "step": opt_state.step}
 
     return train_step
+
+
+# eager steps before a capture, as ``DecodeExecutable``'s: the first pays
+# the lazy set-up, the second runs under CUDA's sync debug mode "error", so
+# a step that reads the device on the host raises there, naming its op,
+# instead of being captured
+WARM_STEPS = 2
+
+
+def eager_reason(cfg, run, mesh: Optional[S.Mesh] = None) -> Optional[str]:
+    """Why the train step of ``cfg`` under ``run`` on ``mesh`` is not
+    captured as a CUDA graph, or None where it is. A rule fixed before the
+    first step, never a reaction to a failed capture: one rank is captured;
+    these stay eager:
+
+      * a mesh above one rank: gloo's collectives run on the host;
+      * the MoE family: its plain grouped form, which training runs, reads
+        the group sizes on the host;
+      * ``grad_compress``: the codec seeds each leaf's noise from a host
+        integer, a new one every step."""
+    ranks = 1 if mesh is None else math.prod(mesh.axis_sizes)
+    if ranks > 1:
+        return (f"a mesh of {ranks} ranks: gloo's collectives run on the "
+                "host")
+    if cfg.moe is not None:
+        return ("the MoE's plain grouped form reads its group sizes on the "
+                "host")
+    if run.grad_compress:
+        return ("grad_compress: the codec seeds each leaf's noise from a "
+                "host integer")
+    return None
+
+
+class TrainExecutable:
+    """One train step (``make_train_step``'s ``step_fn``) run on static
+    tensors: the batch (a call copies the caller's into it), the AdamW
+    state (``opt``: its moments and a ``step`` the step writes in place) and
+    the metrics ``loss``, ``grad_norm`` and ``step``, 0-d tensors that the
+    next call overwrites (a caller keeps a ``clone``). The model's
+    parameters are updated in place by the step itself.
+
+    On a CUDA device the first ``WARM_STEPS`` calls run the step eagerly on
+    a side stream (the last under sync debug mode "error"), then one step
+    is captured into a graph, which every later call replays: the
+    counterpart of the reference's jit, which compiles once and runs the
+    program. A failed capture raises, and so does a call of an executable
+    whose capture did not happen: it never steps eagerly after its warm
+    steps. On the CPU (the tests) every call runs the step eagerly on the
+    same tensors. ``batch`` gives the static batch's shapes and dtypes (a
+    ``meta`` template will do)."""
+
+    def __init__(self, step_fn: Callable, opt: AdamWState, batch: dict,
+                 device, who: str = "model"):
+        self.step_fn, self.who = step_fn, who
+        self.device = torch.device(device)
+        self.batch = {k: torch.zeros(v.shape, dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in batch.items()}
+        self.opt = opt
+        self.metrics = {
+            "loss": torch.zeros((), dtype=torch.float32, device=self.device),
+            "grad_norm": torch.zeros((), dtype=torch.float32,
+                                     device=self.device),
+            "step": opt.step}
+        self.graph = None
+        self.warm_steps = self.replays = self.eager_steps = 0
+        self.capture_s: Optional[float] = None    # host seconds of capture
+
+    def _step(self) -> None:
+        """One step on the static tensors (the body a graph holds)."""
+        opt, m = self.step_fn(self.opt, self.batch, None)
+        self.opt.step.copy_(opt.step)
+        self.metrics["loss"].copy_(m["loss"])
+        self.metrics["grad_norm"].copy_(m["grad_norm"])
+
+    def _warm(self) -> None:
+        """An eager step on a side stream; the last under sync debug mode
+        "error", then the capture."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            if self.warm_steps < WARM_STEPS - 1:
+                self._step()
+            else:
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._step()
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"{self.who}: the train step reads the device on "
+                        f"the host, so it cannot be captured: {e}") from e
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.warm_steps += 1
+        if self.warm_steps == WARM_STEPS:
+            self._capture()
+
+    def _capture(self) -> None:
+        """Record one step into a graph with its own memory pool. A capture
+        runs nothing: the next call's replay is the next step."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self._step()
+        except Exception as e:
+            raise RuntimeError(f"{self.who}: the train step could not be "
+                               f"captured as a CUDA graph: {e}") from e
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+
+    def __call__(self, batch: dict) -> dict:
+        """Copy ``batch`` into the static batch and run one step; returns
+        the static metrics."""
+        for k, t in self.batch.items():
+            if tuple(batch[k].shape) != tuple(t.shape):
+                raise ValueError(f"{self.who}: batch[{k!r}] has shape "
+                                 f"{tuple(batch[k].shape)}, the executable "
+                                 f"{tuple(t.shape)}")
+            t.copy_(batch[k])
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+        elif self.device.type != "cuda":
+            self._step()
+            self.eager_steps += 1
+        elif self.warm_steps < WARM_STEPS:
+            self._warm()
+        else:
+            raise RuntimeError(f"{self.who}: this train executable on "
+                               f"{self.device} was not captured; it never "
+                               "steps eagerly after its warm steps")
+        return self.metrics
 
 
 def make_eval_step(model) -> Callable:

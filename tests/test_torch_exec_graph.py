@@ -28,8 +28,8 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatcher, Replica  # noqa: E402
 from repro_torch.serving.exec_cache import (DecodeExecutable,  # noqa: E402
                                             ExecutableCache)
-from torch_port_util import jax_tree_to_numpy, reduced_pair  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch_port_util import (jax_tree_to_numpy, no_host_reads,  # noqa: E402
+                             reduced_pair)
 
 KW = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=512)
 FAMILIES = {"smollm-360m": KW, "rwkv6-7b": KW, "arctic-480b": KW,
@@ -234,24 +234,6 @@ def test_zamba2_differing_lengths_raise_through_the_executable():
 
 # -- no host reads in the step body ---------------------------------------------
 
-# the ops behind ``.item()`` and ``bool()`` of a tensor: under inference
-# mode they reach a dispatch mode as ``item`` and ``is_nonzero``, outside it
-# as ``_local_scalar_dense``. On the card each is a host synchronisation,
-# which a CUDA graph cannot hold
-_HOST_READS = (torch.ops.aten._local_scalar_dense.default,
-               torch.ops.aten.item.default,
-               torch.ops.aten.is_nonzero.default)
-
-
-class _NoHostReads(TorchDispatchMode):
-    """Fails on any op of ``_HOST_READS``."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in _HOST_READS:
-            raise AssertionError("the decode step read a tensor on the host")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("name", ["smollm-360m", "qwen2-vl-72b", "rwkv6-7b",
                                   "zamba2-2.7b"])
 def test_step_body_reads_nothing_on_the_host(name):
@@ -262,13 +244,13 @@ def test_step_body_reads_nothing_on_the_host(name):
     model = _model(name)
     exe = _exe(model)
     exe(np.ones((3, 1), np.int32), 4)
-    with torch.inference_mode(), _NoHostReads():
+    with torch.inference_mode(), no_host_reads():
         logits = exe._step()
     assert logits.shape == (3, 512)
     # the guard catches what it is for: a length read on the host, as
     # Zamba2's step makes when its lengths were not checked before
     with pytest.raises(AssertionError, match="host"), \
-            torch.inference_mode(), _NoHostReads():
+            torch.inference_mode(), no_host_reads():
         if name == "zamba2-2.7b":
             exe.model.decode_step(exe.cache, {"tokens": exe.tokens,
                                               "cache_len": exe.cache_len})

@@ -110,6 +110,29 @@ def assert_grads_close(got, want, rtol=1e-3, atol=1e-4):
                                    atol=atol * scale, err_msg=k)
 
 
+# the ops behind ``.item()``, ``.tolist()`` and ``bool()`` of a tensor: under
+# inference mode they reach a dispatch mode as ``item`` and ``is_nonzero``,
+# outside it as ``_local_scalar_dense``. On the card each is a host
+# synchronisation, which a CUDA graph cannot hold
+HOST_READS = (torch.ops.aten._local_scalar_dense.default,
+              torch.ops.aten.item.default,
+              torch.ops.aten.is_nonzero.default)
+
+
+def no_host_reads():
+    """A dispatch mode that fails on any op of ``HOST_READS``: around the
+    body of a step that a CUDA graph is to capture."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NoHostReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in HOST_READS:
+                raise AssertionError("the step read a tensor on the host")
+            return func(*args, **(kwargs or {}))
+
+    return NoHostReads()
+
+
 @contextlib.contextmanager
 def torch_threads(n):
     """PyTorch's intra-op threads set to ``n`` inside the block. The
