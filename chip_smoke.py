@@ -41,7 +41,7 @@ JSON line:
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
-then eleven paths, each driven with the launch counters zeroed just
+then twelve paths, each driven with the launch counters zeroed just
 before it and read just after it (as every path below is). Every
 ``Replica`` decodes by replaying the CUDA graph of its decode step that
 ``ExecutableCache.warm`` captured (two eager warm-up steps, the last under
@@ -136,6 +136,17 @@ beside the eager step's time and host syncs:
                model) at 400 requests a virtual second: every request ok,
                each one's tokens equal to a solo replica of the sandbox it
                was admitted to
+  churn-live/smollm-360m
+               the live churn bench (``benchmarks/torch_churn_live.py``) at
+               full width: its process-mode cold/warm point (one cold
+               creation, four warm, each split into the replica's build
+               and its capture) and its first grid cell (8 workers, 100
+               requests over 8 functions, 4-token prompts, 8 new tokens);
+               every creation succeeds and is captured, every request is
+               done with its tokens (the first and the last equal to a
+               solo replica's with their sandbox's seed), no replica
+               leaks, and the device memory is back within 256 MB after
+               the backends close
 
 and then the mesh paths, four ranks each, all processes on ``cuda:0`` over
 gloo, each held against the port on one device with the same weights
@@ -204,24 +215,27 @@ from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)                 # the benchmarks package
 
 import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
+# the kernels' main cases and their timing, shared with the kernel bench
+from benchmarks.torch_kernel_bench import (  # noqa: E402
+    FLASH_CALLS, MAIN, RAGGED, SEED, bound, decode_cost, decode_inputs,
+    device_ms, flash_cost, flash_inputs, grouped_cost, grouped_inputs,
+    grouped_library, moe_group_sizes, sdpa_decode, sdpa_prefill,
+    ssd_card_inputs, ssd_cost, swiglu_library, time_ms, wkv6_card_inputs,
+    wkv6_cost)
 from repro_torch.launch import roofline  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
 # dry run's roofline and the kernel bounds here read the same constants
 HBM_BYTES_PER_S = roofline.HBM_BW
-PEAK_FLOPS = {torch.bfloat16: roofline.peak_flops("bfloat16"),
-              torch.float32: roofline.peak_flops("float32")}
 # the tensor cores in TF32; a 3xTF32 product is 3 of them
 TF32_FLOPS = roofline.peak_flops("tf32")
 KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RECURRENCE_TOL = {dt: 5 * tol for dt, tol in KERNEL_TOL.items()}
 
-SEED = 1234
-FLASH_CALLS = 8      # K2 calls per timed CUDA graph
 # the block shapes of K4 and K3 timed in turns (``design`` of the wrappers;
 # 0 is the launcher's own choice, csrc/ssd_chunk.cu and rwkv6_chunk.cu
 # list the others)
@@ -252,39 +266,6 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, n_inner: int = 1, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of one call inside ``fn`` (``fn`` makes ``n_inner``
-    calls), measured with CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * n_inner)
-
-
-def device_ms(fn, n_inner: int = 1, reps: int = 20) -> float:
-    """Mean milliseconds of device time of one call inside ``fn``: the calls
-    are captured once into a CUDA graph and the graph is replayed, so the
-    host's launch path (Python, the allocator, the launch call) is left out
-    and what is timed is the kernels alone, back to back."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                               # warm-up off the default stream
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, n_inner, reps=reps, warmup=2)
 
 
 def profiled_ms(fn, calls: int = 10) -> Optional[float]:
@@ -354,14 +335,6 @@ def phase_build() -> None:
 
 # -- phase: kernels -------------------------------------------------------------
 
-def bound(nbytes, flops, peak):
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / peak * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "flops": flops}
-
-
 def bound_3xtf32(nbytes, product_flops):
     """The bound of the arithmetic the recurrence kernels run: their
     products as three TF32 products each on the tensor cores, against the
@@ -371,24 +344,6 @@ def bound_3xtf32(nbytes, product_flops):
     return {"bound_3xtf32_ms": max(by_bytes, by_ops),
             "bound_3xtf32_by": "bytes" if by_bytes >= by_ops
             else "operations"}
-
-
-def decode_inputs(B, Smax, Hq, Hkv, D, dtype, lens, n_layers, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((n_layers, B, 1, Hq, D), generator=g, device="cuda",
-                    dtype=torch.float32).to(dtype)
-    kc = torch.randn((n_layers, B, Smax, Hkv, D), generator=g, device="cuda",
-                     dtype=torch.float32).to(dtype)
-    vc = torch.randn((n_layers, B, Smax, Hkv, D), generator=g, device="cuda",
-                     dtype=torch.float32).to(dtype)
-    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    return q, kc, vc, lens_t
-
-
-def sdpa_decode(q, kc, vc, mask):
-    return F.scaled_dot_product_attention(
-        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
 def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
@@ -429,10 +384,8 @@ def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
         require(alt_err <= KERNEL_TOL[dtype],
                 f"{name}: plan {alt}: max_abs_err {alt_err}")
     if timed:
-        item = q.element_size()
-        live = sum(min(max(int(n), 0), Smax) for n in lens)
-        nbytes = (2 * live * Hkv * D + 2 * B * Hq * D) * item + 4 * B
-        flops = 4.0 * live * Hq * D
+        nbytes, flops = decode_cost(B, Smax, Hq, Hkv, D, lens,
+                                    q.element_size())
         mask = (torch.arange(Smax, device="cuda")[None, :]
                 < lens_t[:, None])[:, None, None, :]
 
@@ -457,7 +410,7 @@ def check_decode(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
             eager_plain_ms=time_ms(run_plain, n_layers, reps=5, warmup=1),
             eager_library_ms=time_ms(run_library, n_layers),
             library_max_abs_err=lib_err, **bound(nbytes, flops,
-                                                 PEAK_FLOPS[dtype]))
+                                                 dtype))
         rec["ms_again"] = device_ms(run_kernel, n_layers)
         rec["plan_ms"] = {}
         for alt in plans:
@@ -504,23 +457,6 @@ def check_decode_graph(name, B, Smax, Hq, Hkv, D, dtype, lens):
     return rec
 
 
-def flash_inputs(B, Sq, Skv, Hq, Hkv, D, dtype, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda",
-                    dtype=torch.float32).to(dtype)
-    k = torch.randn((B, Skv, Hkv, D), generator=g, device="cuda",
-                    dtype=torch.float32).to(dtype)
-    v = torch.randn((B, Skv, Hkv, D), generator=g, device="cuda",
-                    dtype=torch.float32).to(dtype)
-    return q, k, v
-
-
-def visible_pairs(Sq, Skv, causal, q_offset) -> int:
-    if not causal:
-        return Sq * Skv
-    return sum(min(Skv, i + q_offset + 1) for i in range(Sq))
-
-
 def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
                 timed=False, zero_heads=0):
     """Kernel vs plain on one prefill shape (``zero_heads``: the last query
@@ -548,9 +484,8 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
     require(err <= KERNEL_TOL[dtype],
             f"{name}: max_abs_err {err} > {KERNEL_TOL[dtype]}")
     if timed:
-        item = q.element_size()
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
-        flops = 4.0 * D * Hq * B * visible_pairs(Sq, Skv, causal, q_offset)
+        nbytes, flops = flash_cost(B, Sq, Skv, Hq, Hkv, D, causal, q_offset,
+                                   q.element_size())
 
         # FLASH_CALLS calls a graph, so that one graph launch is spread
         # over them (K1's cases spread it over their 32 layers); the time
@@ -569,9 +504,7 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
                                          q_offset=q_offset)
 
         def one_library():
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=causal, enable_gqa=True).transpose(1, 2)
+            return sdpa_prefill(q, k, v, causal)
 
         rec.update(
             ms=device_ms(calls(one_kernel), FLASH_CALLS),
@@ -579,7 +512,7 @@ def check_flash(name, B, Sq, Skv, Hq, Hkv, D, dtype, causal, q_offset=0,
             eager_ms=time_ms(one_kernel),
             eager_plain_ms=time_ms(one_plain, reps=5, warmup=1),
             ms_one_call_graph=device_ms(one_kernel),
-            library_ms=None, **bound(nbytes, flops, PEAK_FLOPS[dtype]))
+            library_ms=None, **bound(nbytes, flops, dtype))
         # SDPA's causal mask is aligned top-left, the kernel's to the
         # diagonal at q_offset: only a non-causal call or a square causal
         # one computes the same function
@@ -601,25 +534,6 @@ def allclose_excess(got, want, tol) -> float:
     return float(((got - want).abs() - tol * want.abs()).max())
 
 
-def wkv6_inputs(B, S, H, dk, dv, dtype, seed, strong_decay=False):
-    """The distributions of tests/test_kernels.py, drawn on the card. With
-    ``strong_decay`` every log w sits at the models' clamp (-0.5), so that
-    over a chunk of 64 the factors exp(+-cum) reach e^32, where the 3xTF32
-    split's error is largest."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def n(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
-
-    r, k, v = (n(B, S, H, d) * 0.5 for d in (dk, dk, dv))
-    w = torch.exp(-torch.exp(n(B, S, H, dk) * 0.5 - 1.5)).clamp(0.62, 0.9999)
-    if strong_decay:
-        w = torch.full_like(w, math.exp(-0.5))
-    u = n(H, dk) * 0.3
-    s0 = n(B, H, dk, dv) * 0.1
-    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
-
-
 def misalign(t):
     """The same values in a contiguous view that starts one element past an
     aligned address: the recurrence kernels then copy their inputs element
@@ -636,7 +550,7 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
     state. ``state=False`` passes zeros, as the model's forward does."""
     from repro_torch.kernels.rwkv6_chunk import wkv6, wkv6_plain
 
-    r, k, v, w, u, s0 = wkv6_inputs(B, S, H, dk, dv, dtype, SEED + 3,
+    r, k, v, w, u, s0 = wkv6_card_inputs(B, S, H, dk, dv, dtype, SEED + 3,
                                     strong_decay)
     if misaligned:
         r, k, v, w = (misalign(t) for t in (r, k, v, w))
@@ -661,19 +575,8 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
     require(rec["allclose_excess"] <= tol,
             f"{name}: outside allclose(atol=rtol={tol}): {rec}")
     if timed:
-        item = r.element_size()
-        n_chunks = S // chunk
-        nbytes = (B * S * H * (2 * dk + dv) * item     # r, k, v
-                  + B * S * H * dk * 4 + H * dk * 4     # w, u
-                  + 2 * B * H * dk * dv * 4             # state in and out
-                  + B * S * H * dv * 4)                 # y
-        products = (2 * dk * chunk * (chunk - 1) // 2   # strictly-lower scores
-                    + 2 * dv * chunk * (chunk + 1) // 2  # scores @ v
-                    + 4 * chunk * dk * dv)               # q_dec @ S, carry
-        per_chunk = (products
-                     + 2 * dk * chunk                   # the u bonus
-                     + dk * dv)                         # the state's decay
-        flops = float(B * H * n_chunks * per_chunk)
+        nbytes, flops, products = wkv6_cost(B, S, H, dk, dv, chunk,
+                                            r.element_size())
 
         def run_kernel():
             return wkv6(r, k, v, w, u, s0, chunk=chunk)
@@ -681,8 +584,8 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
         def run_plain():
             return wkv6_plain(r, k, v, w, u, s0, chunk=chunk)
 
-        rec.update(bound(nbytes, flops, PEAK_FLOPS[dtype]))
-        rec.update(bound_3xtf32(nbytes, float(B * H * n_chunks * products)))
+        rec.update(bound(nbytes, flops, dtype))
+        rec.update(bound_3xtf32(nbytes, products))
         rec.update(ms=device_ms(run_kernel), plain_ms=device_ms(run_plain,
                                                                 reps=5),
                    eager_ms=time_ms(run_kernel),
@@ -692,45 +595,6 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
         rec["ms_again"] = device_ms(run_kernel)
         rec["ms_third"] = device_ms(run_kernel)
     return rec
-
-
-def ssd_inputs(b, S, H, P, N, dtype, broadcast, seed, init_scale=False):
-    """The distributions of tests/test_kernels.py; with ``broadcast`` B and
-    C are one (b, S, N) tensor viewed over the heads (head stride 0) and x
-    a strided view, as Zamba2Model passes them. ``init_scale`` draws what
-    zamba2-2.7b's mixers see under the reference's init instead: in_proj
-    outputs of std ~17 (fan-in n_super = 9 over d_model 2560), so dt =
-    softplus(N(0, 17)) and x, B, C = silu of their width-4 conv (std ~6.8),
-    with A = -linspace(1, 8, H)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def n(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
-
-    if init_scale:
-        dt = F.softplus(n(b, S, H) * 17.0)
-        A = -torch.linspace(1.0, 8.0, H, device="cuda")
-
-        def act(*shape):
-            return F.silu(n(*shape) * 6.8)
-    else:
-        dt = F.softplus(n(b, S, H) * 0.5) * 0.5
-        A = -torch.exp(n(H) * 0.3)
-
-        def act(*shape):
-            return n(*shape) * 0.5
-    D = n(H) * 0.3
-    h0 = n(b, H, P, N) * 0.1
-    if broadcast:
-        x = act(b, S, H * P + 2 * N).to(dtype)[..., :H * P].reshape(
-            b, S, H, P)
-        bc = act(b, S, 2 * N).to(dtype)
-        Bm = bc[..., :N][:, :, None, :].expand(b, S, H, N)
-        Cm = bc[..., N:][:, :, None, :].expand(b, S, H, N)
-    else:
-        x = act(b, S, H, P).to(dtype)
-        Bm, Cm = (act(b, S, H, N).to(dtype) for _ in range(2))
-    return x, dt, A, Bm, Cm, D, h0
 
 
 def normalised_err(a, b) -> float:
@@ -752,7 +616,7 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
     state."""
     from repro_torch.kernels.ssd_chunk import ssd, ssd_plain
 
-    x, dt, A, Bm, Cm, D, h0 = ssd_inputs(b, S, H, P, N, dtype, broadcast,
+    x, dt, A, Bm, Cm, D, h0 = ssd_card_inputs(b, S, H, P, N, dtype, broadcast,
                                          SEED + 4, init_scale)
     if misaligned:
         x, Bm, Cm = (misalign(t) for t in (x, Bm, Cm))
@@ -786,19 +650,8 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
         require(rec["allclose_excess"] <= tol,
                 f"{name}: outside allclose(atol=rtol={tol}): {rec}")
     if timed:
-        item = x.element_size()
-        n_chunks = S // chunk
-        bc_bytes = 2 * b * S * N * item * (1 if broadcast else H)
-        nbytes = (b * S * H * P * item + b * S * H * 4 + 2 * H * 4 + bc_bytes
-                  + 2 * b * H * P * N * 4 + b * S * H * P * 4)
-        pairs = chunk * (chunk + 1) // 2                # j <= i
-        # C_i . B_j does not depend on the head when B and C are shared
-        scores = 2 * N * pairs * (1 if broadcast else H)
-        products = scores + H * (2 * P * pairs          # scores @ (x dt)
-                                 + 4 * chunk * P * N)   # C h^T, carry
-        flops = float(b * n_chunks * (products + H * (
-            pairs                                       # the decays
-            + 3 * chunk * P)))                          # x dt, D x
+        nbytes, flops, products = ssd_cost(b, S, H, P, N, chunk,
+                                           x.element_size(), broadcast)
 
         def run_kernel():
             return ssd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
@@ -806,8 +659,8 @@ def check_ssd(name, b, S, H, P, N, chunk, dtype, broadcast, state=True,
         def run_plain():
             return ssd_plain(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
 
-        rec.update(bound(nbytes, flops, PEAK_FLOPS[dtype]))
-        rec.update(bound_3xtf32(nbytes, float(b * n_chunks * products)))
+        rec.update(bound(nbytes, flops, dtype))
+        rec.update(bound_3xtf32(nbytes, products))
         rec.update(ms=device_ms(run_kernel), plain_ms=device_ms(run_plain,
                                                                 reps=5),
                    eager_ms=time_ms(run_kernel),
@@ -828,13 +681,13 @@ def check_recurrence_graph(name, kernel):
 
     if kernel == "wkv6":
         dtype = torch.bfloat16
-        args = wkv6_inputs(1, 256, 64, 64, 64, dtype, SEED + 7)
+        args = wkv6_card_inputs(1, 256, 64, 64, 64, dtype, SEED + 7)
 
         def call():
             return wkv6(*args, chunk=64)
     else:
         dtype = torch.float32
-        args = ssd_inputs(1, 256, 80, 64, 64, dtype, True, SEED + 8)
+        args = ssd_card_inputs(1, 256, 80, 64, 64, dtype, True, SEED + 8)
 
         def call():
             return ssd(*args, chunk=64)
@@ -866,12 +719,12 @@ def time_designs(kernel, designs, turns=2):
     from repro_torch.kernels.ssd_chunk import ssd
 
     if kernel == "wkv6":
-        args = wkv6_inputs(1, 256, 64, 64, 64, torch.bfloat16, SEED + 3)
+        args = wkv6_card_inputs(1, 256, 64, 64, 64, torch.bfloat16, SEED + 3)
 
         def call(d):
             return wkv6(*args, chunk=64, design=d)
     else:
-        x, dt, A, Bm, Cm, D, h0 = ssd_inputs(1, 256, 80, 64, 64,
+        x, dt, A, Bm, Cm, D, h0 = ssd_card_inputs(1, 256, 80, 64, 64,
                                              torch.float32, True, SEED + 4)
 
         def call(d):
@@ -933,10 +786,8 @@ def check_decode_lse(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
             f"{name}: -inf rows differ")
     require(lse_err <= LSE_TOL, f"{name}: lse max_abs_err {lse_err}")
     if timed:
-        item = q.element_size()
-        live = sum(min(max(int(n), 0), Smax) for n in lens)
-        nbytes = (2 * live * Hkv * D + 2 * B * Hq * D) * item + 4 * B
-        flops = 4.0 * live * Hq * D
+        nbytes, flops = decode_cost(B, Smax, Hq, Hkv, D, lens,
+                                    q.element_size())
 
         def run(with_lse):
             for i in range(n_layers):
@@ -946,34 +797,8 @@ def check_decode_lse(name, B, Smax, Hq, Hkv, D, dtype, lens, timed=False,
         rec.update(ms=device_ms(lambda: run(True), n_layers),
                    ms_without_lse=device_ms(lambda: run(False), n_layers),
                    ms_again=device_ms(lambda: run(True), n_layers),
-                   **bound(nbytes + 4 * B * Hq, flops, PEAK_FLOPS[dtype]))
+                   **bound(nbytes + 4 * B * Hq, flops, dtype))
     return rec
-
-
-def moe_group_sizes(T, k, E, seed):
-    """The group sizes a router's top-k gives T tokens over E experts (each
-    token picks k distinct experts; uniform draws from the seed)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    sizes = np.zeros(E, np.int64)
-    for _ in range(T):
-        sizes[rng.choice(E, k, replace=False)] += 1
-    return sizes.tolist()
-
-
-def grouped_library(x, w, gs):
-    """``torch._grouped_mm`` on the same rows (bf16, offsets on the
-    device): the library yardstick, used nowhere in the port."""
-    return torch._grouped_mm(x, w, offs=torch.cumsum(gs, 0,
-                                                     dtype=torch.int32))
-
-
-def swiglu_library(x, wg, wu, gs):
-    """The fused pass's yardstick: ``torch._grouped_mm`` twice and the
-    epilogue, used nowhere in the port."""
-    g, u = grouped_library(x, wg, gs), grouped_library(x, wu, gs)
-    return (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
 
 
 def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
@@ -989,11 +814,7 @@ def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
     calls and two graph replays bit-equal."""
     from repro_torch.kernels import grouped_gemm as G
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    x = torch.randn((C, K), generator=g, device="cuda", dtype=dtype)
-    ws = [torch.randn((E, K, N), generator=g, device="cuda",
-                      dtype=dtype).mul_(K ** -0.5)
-          for _ in range(2 if fused else 1)]
+    x, ws = grouped_inputs(C, K, N, E, dtype, fused, SEED + 11)
     gs = torch.tensor(sizes, dtype=torch.int64, device="cuda")
     if fused:
         kernel, lib = "grouped_swiglu", swiglu_library
@@ -1041,15 +862,13 @@ def check_grouped(name, C, K, N, E, sizes, dtype, timed=False,
         require(all(rec["eager_eager_graph_graph_bit_equal"]),
                 f"{name}: eager and replayed outputs differ")
     if timed:
-        item = x.element_size()
-        nbytes = (len(ws) * rec["active_experts"] * K * N + C * K + C * N) \
-            * item + E * 8
-        flops = 2.0 * len(ws) * rows * K * N
+        nbytes, flops = grouped_cost(C, K, N, E, sizes, len(ws),
+                                     x.element_size())
         rec.update(ms=device_ms(lambda: run(x, *ws, gs)),
                    eager_ms=time_ms(lambda: run(x, *ws, gs)),
                    plain_ms=time_ms(lambda: plain(x, *ws, gs), reps=5,
                                     warmup=1),
-                   **bound(nbytes, flops, PEAK_FLOPS[dtype]))
+                   **bound(nbytes, flops, dtype))
         rec["ms_again"] = device_ms(lambda: run(x, *ws, gs))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["library_ms"] = rec["library_error"] = None
@@ -1076,14 +895,13 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
-    ragged = [1, 1024, 37, 512, 700, 64, 999, 250]
     cases = [
         # K1 at the main path's shape: one ContinuousBatcher step of
         # smollm-360m, 8 slots, 1024-long cache, per-slot lengths
-        check_decode("decode/main/bf16", 8, 1024, 15, 5, 64, bf16, ragged,
+        check_decode("decode/main/bf16", **MAIN["decode_attention"],
                      timed=True, split=True,
                      plans=[(1, 1024), (8, 128), (16, 64)]),
-        check_decode("decode/main/fp32", 8, 1024, 15, 5, 64, f32, ragged,
+        check_decode("decode/main/fp32", 8, 1024, 15, 5, 64, f32, RAGGED,
                      timed=True),
         check_decode("decode/scalar-len", 8, 1024, 15, 5, 64, bf16,
                      [333] * 8, scalar_len=333),
@@ -1106,10 +924,10 @@ def phase_kernels() -> dict:
         check_decode("decode/no-split/bf16", 32, 256, 15, 5, 64, bf16,
                      [256, 0, 1, 255] * 8, split=False),
         check_decode_graph("decode/graph-replay/bf16", 8, 1024, 15, 5, 64,
-                           bf16, ragged),
+                           bf16, RAGGED),
         # K2 at the main path's shape (the 256-token prefill of the model
         # phase) and at the sizes named for it
-        check_flash("flash/main/bf16", 1, 256, 256, 15, 5, 64, bf16, True,
+        check_flash("flash/main/bf16", **MAIN["flash_attention"],
                     timed=True),
         check_flash("flash/S512/bf16", 2, 512, 512, 15, 5, 64, bf16, True,
                     timed=True),
@@ -1154,16 +972,16 @@ def phase_kernels() -> dict:
         # 56/8 heads (a group of 7: one query head a block, so each block
         # reads its KV head's cache once per query head) and qwen2-vl-72b's
         # 64/8 (a group of 8, one block a KV head). K1 at arctic's batcher
-        # step (8 slots, ragged) and at qwen2-vl's last decode step of the
+        # step (8 slots, RAGGED) and at qwen2-vl's last decode step of the
         # model phase (256 cached positions), K2 at the 256-token prefill.
         # Beside arctic's K1, the same cache with a group of 8: what the
         # group of 7 costs
         check_decode("decode/arctic-g7-d128/bf16", 8, 1024, 56, 8, 128, bf16,
-                     ragged, timed=True),
+                     RAGGED, timed=True),
         check_decode("decode/arctic-g7-d128/fp32", 8, 1024, 56, 8, 128, f32,
-                     ragged, timed=True),
+                     RAGGED, timed=True),
         check_decode("decode/g8-d128-arctic-batch/bf16", 8, 1024, 64, 8, 128,
-                     bf16, ragged, timed=True),
+                     bf16, RAGGED, timed=True),
         check_decode("decode/qwen2vl-g8-d128/bf16", 1, 1024, 64, 8, 128, bf16,
                      [256], timed=True),
         check_decode("decode/qwen2vl-g8-d128/fp32", 1, 1024, 64, 8, 128, f32,
@@ -1264,8 +1082,8 @@ def phase_kernels() -> dict:
         )],
         # K3 at rwkv6-7b's forward (64 heads of 64, chunk 64, the 256-token
         # prompt of the model phase, zero initial state) and at the edges
-        check_wkv6("wkv6/main/bf16", 1, 256, 64, 64, 64, 64, bf16,
-                   state=False, timed=True),
+        check_wkv6("wkv6/main/bf16", **MAIN["wkv6"], state=False,
+                   timed=True),
         check_wkv6("wkv6/main/fp32", 1, 256, 64, 64, 64, 64, f32,
                    state=False, timed=True),
         check_wkv6("wkv6/S512/bf16", 1, 512, 64, 64, 64, 64, bf16,
@@ -1286,8 +1104,7 @@ def phase_kernels() -> dict:
                    misaligned=True),
         # K4 at zamba2-2.7b's forward (80 heads, P = N = 64, chunk 64, fp32
         # as the model passes them, B/C broadcast over heads) and the edges
-        check_ssd("ssd/main/fp32", 1, 256, 80, 64, 64, 64, f32, True,
-                  state=False, timed=True),
+        check_ssd("ssd/main/fp32", **MAIN["ssd"], state=False, timed=True),
         check_ssd("ssd/S512/fp32", 1, 512, 80, 64, 64, 64, f32, True,
                   state=False, timed=True),
         check_ssd("ssd/init-scale/fp32", 1, 256, 80, 64, 64, 64, f32, True,
@@ -1315,9 +1132,8 @@ def phase_kernels() -> dict:
         # prefill (C = 512), and at the edges: empty groups, every row in
         # one group, rows past the last group, C a multiple of no tile, N a
         # partial column tile; eager against graph replay
-        check_grouped("grouped/arctic-decode-gate/bf16", 16, 7168, 4864, 128,
-                      moe_group_sizes(8, 2, 128, SEED), bf16, timed=True,
-                      graph=True),
+        check_grouped("grouped/arctic-decode-gate/bf16",
+                      **MAIN["grouped_matmul"], timed=True, graph=True),
         check_grouped("grouped/arctic-decode-down/bf16", 16, 4864, 7168, 128,
                       moe_group_sizes(8, 2, 128, SEED), bf16, timed=True),
         check_grouped("grouped/arctic-decode-gate/fp32", 16, 7168, 4864, 128,
@@ -1334,9 +1150,8 @@ def phase_kernels() -> dict:
                       timed=True),
         # the fused gate/up pass at the three gate shapes above (its two
         # matrices of each), fp32 at arctic's decode
-        check_grouped("swiglu/arctic-decode/bf16", 16, 7168, 4864, 128,
-                      moe_group_sizes(8, 2, 128, SEED), bf16, timed=True,
-                      graph=True, fused=True),
+        check_grouped("swiglu/arctic-decode/bf16", **MAIN["grouped_swiglu"],
+                      timed=True, graph=True),
         check_grouped("swiglu/kimi-decode/bf16", 64, 7168, 2048, 384,
                       moe_group_sizes(8, 8, 384, SEED), bf16, timed=True,
                       graph=True, fused=True),
@@ -2824,6 +2639,78 @@ def phase_launch_serve() -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase: churn-live ----------------------------------------------------------
+
+CHURN_MEMORY_SLACK = 256 << 20    # bytes; one leaked replica is ~0.72 GB
+
+
+def phase_churn_live(cfg) -> None:
+    """The live churn bench's process-mode cold/warm point (one cold
+    creation, four warm) and its first grid cell (8 workers, 50 requests a
+    virtual second for 2 s, 8 functions) at smollm-360m's full width
+    (``benchmarks/torch_churn_live.py``): no failed creation, every request
+    done with its 8 tokens, the first and the last of them the tokens a
+    solo replica with their sandbox's seed decodes, no leaked replica,
+    every replica decoding by replaying its captured graph, the decode
+    kernel's launches equal to (replays + eager warm-up steps, the solo
+    replicas' included) x layers, and the device memory back where it was
+    once the backends are closed."""
+    from benchmarks import torch_churn_live as bench
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    before = ops.launch_counts()
+    cw = bench.live_cold_warm_point("process")
+    cell = bench.live_grid_point(8, 50.0, 2.0)
+    moved = ops.launch_delta(before).get("decode_attention", 0)
+    cell.pop("_invoke_walls")
+    cell.pop("_start_log")
+    for where, rec in (("cold/warm", cw), ("grid", cell)):
+        problems = bench.failures(rec)     # uncaptured replicas included
+        require(not problems and rec["width"] == "full",
+                f"churn-live {where}: {problems}, width {rec['width']}")
+    require([r["cold"] for r in cw["creates"]] == [True] + [False] * 4,
+            f"churn-live: cold/warm rows {cw['creates']}")
+    require(cell["done"] == cell["total"] == 100 and cell["cold_creates"] == 1
+            and len(cell["solo_checks"]) == 2,
+            f"churn-live grid: {cell['done']}/{cell['total']} done, "
+            f"{cell['cold_creates']} cold creations, solo checks "
+            f"{cell['solo_checks']}")
+    steps = cw["decode_steps"] + cell["decode_steps"]
+    warm_steps = cw["warm_steps"] + cell["warm_steps"] + cell["solo_steps"]
+    require(moved == (steps + warm_steps) * cfg.n_layers,
+            f"churn-live: decode kernel launches {moved} != (replays {steps} "
+            f"+ warm-up and solo steps {warm_steps}) x layers "
+            f"{cfg.n_layers}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    require(mem_after - mem_before <= CHURN_MEMORY_SLACK,
+            f"churn-live: {mem_after - mem_before} bytes still allocated "
+            f"after close()")
+    emit("churn-live", config=cfg.name, n_layers=cfg.n_layers,
+         cold_create_ms=cw["cold_create_s"] * 1e3,
+         warm_create_ms=cw["warm_create_s"] * 1e3,
+         **{k: cw[k] for k in ("cold_build_ms_median",
+                               "cold_capture_ms_median",
+                               "warm_build_ms_median",
+                               "warm_capture_ms_median")},
+         grid={k: cell[k] for k in (
+             "workers", "rate", "duration", "creations", "cold_creates",
+             "warm_creates", "cold_create_ms_median", "warm_create_ms_median",
+             "cold_build_ms_median", "cold_capture_ms_median",
+             "warm_build_ms_median", "warm_capture_ms_median",
+             "creations_per_wall_s", "done", "total", "p50_ms", "p99_ms",
+             "invoke_wall_p50_ms", "invoke_wall_p99_ms", "tokens",
+             "tokens_per_wall_s", "batched_invokes", "peak_replicas",
+             "peak_memory_bytes", "wall_s", "sim_s", "decode_steps",
+             "solo_checks", "solo_steps")},
+         decode_launches=moved, memory_delta_bytes=mem_after - mem_before,
+         device=cell["device"])
+
+
 # -- mesh paths -----------------------------------------------------------------
 #
 # Each is MESH_RANKS processes spawned from this script (torch.multiprocessing,
@@ -4280,6 +4167,7 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "train/smollm-360m": (),
                 "train/whisper-small": (),
                 "launch/serve": ("decode_attention",),
+                "churn-live/smollm-360m": ("decode_attention",),
                 # four ranks on cuda:0 over gloo; the counts are the ranks'
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
                 "mesh/smollm-360m": ("decode_attention", "flash_attention"),
@@ -4311,7 +4199,8 @@ def run_path(name, serve_records) -> dict:
              "mesh/train-smollm-360m": "smollm-360m",
              "mesh/train-qwen3-32b": "qwen3-32b",
              ZB1_PATH: "zamba2-2.7b"}.get(
-        name, tail if head in ("train", "launch", "mesh") else head)
+        name, tail if head in ("train", "launch", "mesh", "churn-live")
+        else head)
     cfg = get_config(cname) if cname else None
     ops.reset_launch_counts()
     mesh_phase = {"mesh/qwen3-32b": phase_mesh_lm,
@@ -4365,6 +4254,8 @@ def run_path(name, serve_records) -> dict:
         phase_train_lm(cfg)
     elif name == "train/whisper-small":
         phase_train_whisper(cfg)
+    elif name == "churn-live/smollm-360m":
+        phase_churn_live(cfg)
     else:
         phase_launch_serve()
     if mesh_phase is None:

@@ -38,3 +38,18 @@ def sync(device: torch.device) -> None:
     """Wait for queued device work before a host clock is read."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_WARM_STREAMS: dict = {}
+
+
+def warm_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream a capture's eager warm-up steps run on: one for each
+    device, reused. cuBLAS keeps a workspace (32 MiB on Hopper) for every
+    stream it has run on, for the life of the process, so a fresh stream
+    for each capture would leave one more behind every time a sandbox is
+    created (up to the 32 of PyTorch's stream pool)."""
+    stream = _WARM_STREAMS.get(device)
+    if stream is None:
+        stream = _WARM_STREAMS[device] = torch.cuda.Stream(device)
+    return stream

@@ -48,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.compat import DeviceLike, resolve_device, sync
+from repro_torch.compat import DeviceLike, resolve_device, sync, warm_stream
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -147,7 +147,7 @@ class DecodeExecutable:
         "error", then the capture into a graph with its own memory pool.
         Launches the wrappers counted during the capture are taken back (a
         capture is not a run) and kept as what a replay launches."""
-        side = torch.cuda.Stream(self.device)
+        side = warm_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for i in range(steps):

@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.compat import warm_stream
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import sharding as S
 from repro_torch.train.compress import roundtrip_tree
@@ -224,7 +225,7 @@ class TrainExecutable:
     def _warm(self) -> None:
         """An eager step on a side stream; the last under sync debug mode
         "error", then the capture."""
-        side = torch.cuda.Stream(self.device)
+        side = warm_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             if self.warm_steps < WARM_STEPS - 1:

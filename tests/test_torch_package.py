@@ -34,15 +34,23 @@ def _read(path):
         return f.read()
 
 
-@pytest.mark.parametrize("rel", COPIED)
+# the benches' DES helpers: the port's copy beside its original
+BENCH_COPIES = {"benchmarks/torch_common.py": "benchmarks/common.py"}
+
+
+@pytest.mark.parametrize("rel", COPIED + list(BENCH_COPIES))
 def test_copied_file_equals_original_up_to_package_name(rel):
-    """core/, simcore/, analysis/ and configs/ are verbatim copies: only
+    """core/, simcore/, analysis/ and configs/ are verbatim copies, and so
+    is benchmarks/torch_common.py of benchmarks/common.py: only
     ``repro.`` /
     ``repro/`` became ``repro_torch.`` / ``repro_torch/``. Read as text —
     nothing of ``repro`` is imported here."""
-    want = re.sub(r"\brepro([./])", r"repro_torch\1",
-                  _read(os.path.join(REF, rel)))
-    assert _read(os.path.join(PORT, rel)) == want
+    if rel in BENCH_COPIES:
+        orig, copy = (os.path.join(ROOT, p) for p in (BENCH_COPIES[rel], rel))
+    else:
+        orig, copy = os.path.join(REF, rel), os.path.join(PORT, rel)
+    want = re.sub(r"\brepro([./])", r"repro_torch\1", _read(orig))
+    assert _read(copy) == want
 
 
 def test_every_copied_directory_is_listed():
@@ -103,12 +111,18 @@ print("ok", len(names))
 
 def test_sources_name_no_jax_import():
     """Belt and braces for the subprocess test: no source line of the port
-    (its package, chip_smoke.py, its examples) imports jax or repro."""
+    (its package, chip_smoke.py, its examples, its benches) imports jax or
+    repro."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     paths += [os.path.join(ROOT, "examples", n)
               for n in os.listdir(os.path.join(ROOT, "examples"))
               if n.endswith("_torch.py")]
+    benches = [os.path.join(ROOT, "benchmarks", n)
+               for n in os.listdir(os.path.join(ROOT, "benchmarks"))
+               if n.startswith("torch_") and n.endswith(".py")]
+    assert len(benches) >= 3
+    paths += benches
     for dirpath, _, names in os.walk(PORT):
         paths += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
