@@ -19,12 +19,12 @@ widths (``--width full``, the default) or the reference's 2-layer stand-in
 Beside the reference's keys each cell records the device (name, power
 limit), the width, the repr of every creation that raised (the simulation
 swallows them), the replicas held by no live sandbox, and for each
-in-process creation, timed on the port's own creation path, the seconds of
-its decode step's warm-up and capture (``capture_s``, the
-``ExecutableCache.warm`` call) and of the rest (``build_s``: the replica,
-its weights, its batcher). The first and the last done invocations of a
-trafficked cell are decoded again by a solo replica with their sandbox's
-seed. Timings are recorded and never asserted; a cell with a failed
+in-process creation, from ``LiveBackend.start_log``, the seconds of its
+replica's build (``build_s``: the skeleton, its weights drawn), its decode
+step's eager warm-up (``warm_s``) and its capture (``capture_s``; None on
+the CPU, where nothing is captured). The first and the last done
+invocations of a trafficked cell are decoded again by a solo replica with
+their sandbox's seed. Timings are recorded and never asserted; a cell with a failed
 creation, an invocation not done, a done invocation without ``max_new``
 tokens in the vocabulary or with other tokens than the solo replica's, a
 leaked replica or (on CUDA) a replica that does not decode through its
@@ -125,46 +125,22 @@ def bench_provenance(device=None) -> dict:
 
 # -- the live backend, with what the bench records ------------------------------
 
-class TimedCache(ExecutableCache):
-    """``ExecutableCache`` whose ``warm`` (a creation's decode-step warm-up
-    and capture) marks its entry and exit on the host's clock, the device
-    synchronised at both (``warm`` synchronises there itself before and
-    after its steps)."""
-
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.marks = None
-
-    def warm(self, cfg, shape, run_cfg=None, mode="process", model=None,
-             device=None):
-        dev = model.device if model is not None else resolve_device(device)
-        sync(dev)
-        t0 = time.perf_counter()
-        try:
-            return super().warm(cfg, shape, run_cfg, mode, model, device)
-        finally:
-            sync(dev)
-            self.marks = (t0, time.perf_counter())
-
-
 class BenchBackend(LiveBackend):
-    """``LiveBackend`` on a ``TimedCache`` that also records why a creation
-    failed, the split of each in-process creation (``capture_s``: its
-    ``warm``; ``build_s``: the rest of its wall time, the replica, its
-    weights and its batcher), whether its replica decodes through its
+    """``LiveBackend`` on a fresh ``ExecutableCache`` that also records why
+    a creation failed, whether an in-process replica decodes through its
     captured graph, which sandbox took which request, the decode steps of
     every batcher (torn-down ones included) and the most replicas alive at
-    once."""
+    once. The split of a creation is the backend's own ``start_log`` row's
+    (``build_s``, ``warm_s``, ``capture_s``)."""
 
     def __init__(self, *a, **kw):
-        super().__init__(*a, exec_cache=TimedCache(), **kw)
+        super().__init__(*a, exec_cache=ExecutableCache(), **kw)
         self.create_errors = []
         self.sandbox_of = {}
         self.retired_steps = 0
         self.peak_replicas = 0
 
     def create_hook(self, sandbox) -> None:
-        self.exec_cache.marks = None
         try:
             super().create_hook(sandbox)
         except Exception as e:
@@ -174,13 +150,10 @@ class BenchBackend(LiveBackend):
         row = self.start_log[-1]
         if row["mode"] != "process":
             return
-        w0, w1 = self.exec_cache.marks
         rt = self.sandboxes[sandbox.sandbox_id]
         exe = rt.replica.executable(rt.spec.max_slots)
-        row.update(build_s=round(row["wall_s"] - (w1 - w0), 6),
-                   capture_s=round(w1 - w0, 6),
-                   captured=exe.graph is not None
-                   and rt.batcher.cache is exe.cache)
+        row["captured"] = exe.graph is not None \
+            and rt.batcher.cache is exe.cache
 
     def admit(self, sandbox_id, req):
         ticket = super().admit(sandbox_id, req)
@@ -205,17 +178,19 @@ def _median_ms(rows, key):
 
 
 def _split(rows) -> dict:
-    """Median build and capture ms of the cold and the warm creations."""
+    """Median build, warm-up and capture ms of the cold and the warm
+    creations (from each ``start_log`` row)."""
     cold = [r for r in rows if r["cold"]]
     warm = [r for r in rows if not r["cold"]]
-    return {f"{tag}_{k}_ms_median": _median_ms(group, f"{k}_s")
+    return {f"{tag}_{k}_ms_median": _median_ms(group, key)
             for tag, group in (("cold", cold), ("warm", warm))
-            for k in ("build", "capture")}
+            for k, key in (("build", "build_s"), ("warmup", "warm_s"),
+                           ("capture", "capture_s"))}
 
 
 def _creates(lb) -> list:
     return [{k: r.get(k) for k in ("sandbox_id", "cold", "wall_s", "build_s",
-                                   "capture_s", "captured")}
+                                   "warm_s", "capture_s", "captured")}
             for r in lb.start_log]
 
 
@@ -540,9 +515,12 @@ def live_grid_section(smoke: bool = False, width: str = "full",
               f"cold={row['cold_create_s'] * 1e3:.0f}ms "
               f"warm={row['warm_create_s'] * 1e3:.1f}ms "
               f"-> {row['warm_speedup']:.0f}x "
-              f"(build/capture ms: cold {row['cold_build_ms_median']}/"
+              f"(build/warm-up/capture ms: cold "
+              f"{row['cold_build_ms_median']}/"
+              f"{row['cold_warmup_ms_median']}/"
               f"{row['cold_capture_ms_median']}, warm "
               f"{row['warm_build_ms_median']}/"
+              f"{row['warm_warmup_ms_median']}/"
               f"{row['warm_capture_ms_median']})", flush=True)
 
     grid = GRID[:1] if smoke else GRID

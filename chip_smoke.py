@@ -2694,14 +2694,17 @@ def phase_churn_live(cfg) -> None:
          cold_create_ms=cw["cold_create_s"] * 1e3,
          warm_create_ms=cw["warm_create_s"] * 1e3,
          **{k: cw[k] for k in ("cold_build_ms_median",
+                               "cold_warmup_ms_median",
                                "cold_capture_ms_median",
                                "warm_build_ms_median",
+                               "warm_warmup_ms_median",
                                "warm_capture_ms_median")},
          grid={k: cell[k] for k in (
              "workers", "rate", "duration", "creations", "cold_creates",
              "warm_creates", "cold_create_ms_median", "warm_create_ms_median",
-             "cold_build_ms_median", "cold_capture_ms_median",
-             "warm_build_ms_median", "warm_capture_ms_median",
+             "cold_build_ms_median", "cold_warmup_ms_median",
+             "cold_capture_ms_median", "warm_build_ms_median",
+             "warm_warmup_ms_median", "warm_capture_ms_median",
              "creations_per_wall_s", "done", "total", "p50_ms", "p99_ms",
              "invoke_wall_p50_ms", "invoke_wall_p99_ms", "tokens",
              "tokens_per_wall_s", "batched_invokes", "peak_replicas",

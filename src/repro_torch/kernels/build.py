@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
@@ -175,12 +177,15 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def load(verbose_ptxas: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library (built first if need be)."""
+    """The loaded kernel library (built first if need be). The process's
+    first load, its build included, is the span ``backend.kernels.load``,
+    most often a child of the first decode step's warm-up."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build(verbose_ptxas)))
-            _declare(lib)
+            with trace.Span("backend.kernels.load"):
+                lib = ctypes.CDLL(str(build(verbose_ptxas)))
+                _declare(lib)
             _lib = lib
         return _lib
 

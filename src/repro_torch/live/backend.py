@@ -40,6 +40,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch import trace
 from repro_torch.compat import DeviceLike, resolve_device, sync
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.request import LiveRequest
@@ -76,18 +77,21 @@ class _ProcessSandbox:
         from repro_torch.serving.engine import ContinuousBatcher, Replica
 
         self.spec = spec
-        self.replica = Replica(spec.cfg, rng_seed=seed, max_seq=spec.max_seq,
-                               run_cfg=spec.run_cfg, exec_cache=exec_cache,
-                               device=device)
+        with trace.Span("backend.create.build") as sp:
+            self.replica = Replica(spec.cfg, rng_seed=seed,
+                                   max_seq=spec.max_seq, run_cfg=spec.run_cfg,
+                                   exec_cache=exec_cache, device=device)
+            sync(self.replica.device)        # the weights drawn
+        self.build_s = sp.seconds
         # build and capture the batcher's decode executable before any
         # request is admitted: the first-step costs of a new signature
         # (kernel build and load, library handles, allocator growth) and
         # this replica's own capture are billed to creation, not to the
-        # first invoke; ``warm_s`` is 0.0 when the signature was warmed
+        # first invoke; ``new_signature`` says this creation warmed one
         shape = ShapeSpec("live", spec.max_seq, spec.max_slots, "decode")
-        self.warm_s = exec_cache.warm(spec.cfg, shape,
-                                      run_cfg=self.replica.run_cfg,
-                                      model=self.replica.model)
+        self.new_signature = exec_cache.warm(
+            spec.cfg, shape, run_cfg=self.replica.run_cfg,
+            model=self.replica.model) > 0.0
         self.batcher = ContinuousBatcher(self.replica,
                                          max_slots=spec.max_slots)
 
@@ -102,12 +106,13 @@ class _ProcessSandbox:
         """Step the shared batcher until ``rid`` finishes; returns (tokens,
         max co-resident active slots seen while pumping)."""
         peers = 0
-        while rid not in self.batcher.finished:
-            active = sum(1 for s in self.batcher.slots if s.active)
-            if active == 0:
-                break                # aborted out from under us
-            peers = max(peers, active)
-            self.batcher.step()
+        with trace.step("backend.pump"):
+            while rid not in self.batcher.finished:
+                active = sum(1 for s in self.batcher.slots if s.active)
+                if active == 0:
+                    break                # aborted out from under us
+                peers = max(peers, active)
+                self.batcher.step()
         return self.batcher.finished.get(rid), peers
 
     def drain(self) -> Dict[int, List[int]]:
@@ -169,35 +174,47 @@ class LiveBackend:
 
     # -- WorkerDaemon hooks --------------------------------------------------
     def create_hook(self, sandbox) -> None:
-        """Build the real payload for a freshly booted sandbox. Wall time
-        (and whether the warm-state cache was cold) lands in start_log. The
-        device is synchronised before the clock is read, or a creation
-        whose work is still queued would look free."""
+        """Build the real payload for a freshly booted sandbox. Wall time,
+        whether the warm-state cache was cold, and for an in-process
+        sandbox the seconds of its replica's build (``build_s``), of its
+        decode step's warm-up (``warm_s``) and of its capture
+        (``capture_s``, None where nothing is captured: the CPU) land in
+        start_log; the three are their spans' own clock readings (None in
+        container mode, whose spans are its worker's). The device is
+        synchronised before the clock is read, or a creation whose work is
+        still queued would look free."""
         spec = self.spec_for(sandbox.function_name)
+        sid = sandbox.sandbox_id
         sync(self.device)
-        t0 = time.perf_counter()
-        if spec.mode == "container":
-            from repro_torch.live.container import ContainerSandbox
+        split = dict(build_s=None, warm_s=None, capture_s=None)
+        with trace.Span("backend.create") as sp:
+            if spec.mode == "container":
+                from repro_torch.live.container import ContainerSandbox
 
-            rt = ContainerSandbox(spec, cache_dir=self.compile_cache_dir,
-                                  seed=sandbox.sandbox_id,
-                                  device=str(self.device))
-            cold = rt.cold
-        else:
-            misses0 = self.exec_cache.misses
-            rt = _ProcessSandbox(spec, self.exec_cache,
-                                 seed=sandbox.sandbox_id, device=self.device)
-            # cold = this creation built the entry OR warmed a new signature
-            cold = self.exec_cache.misses > misses0 or rt.warm_s > 0.0
-            sync(self.device)
-        self.sandboxes[sandbox.sandbox_id] = rt
-        self._failed_sids.discard(sandbox.sandbox_id)
+                rt = ContainerSandbox(spec, cache_dir=self.compile_cache_dir,
+                                      seed=sid, device=str(self.device))
+                cold = rt.cold
+            else:
+                misses0 = self.exec_cache.misses
+                rt = _ProcessSandbox(spec, self.exec_cache, seed=sid,
+                                     device=self.device)
+                # cold = this creation built the entry OR warmed a new
+                # signature
+                cold = self.exec_cache.misses > misses0 or rt.new_signature
+                exe = rt.replica.executable(spec.max_slots)
+                split.update(build_s=rt.build_s, warm_s=exe.warm_s,
+                             capture_s=exe.capture_s)
+                sync(self.device)
+        self.sandboxes[sid] = rt
+        self._failed_sids.discard(sid)
         self.start_log.append({
-            "sandbox_id": sandbox.sandbox_id,
+            "sandbox_id": sid,
             "function": sandbox.function_name,
             "mode": spec.mode,
             "cold": cold,
-            "wall_s": round(time.perf_counter() - t0, 6),
+            "wall_s": round(sp.seconds, 6),
+            **{k: None if v is None else round(v, 6)
+               for k, v in split.items()},
         })
 
     def teardown_hook(self, sandbox_id: int, drain: bool = True) -> None:

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models.api import RunConfig
@@ -212,34 +213,37 @@ class ContinuousBatcher:
         row 0 of their own cache rows and attend over one position."""
         if all(not s.active for s in self.slots):
             return []
-        tokens = np.zeros((self.max_slots, 1), np.int32)
-        lens = np.zeros((self.max_slots,), np.int32)
-        for i, s in enumerate(self.slots):
-            lens[i] = s.length
-            if not s.active:
-                continue
-            if s.pending:
-                tokens[i, 0] = s.pending.pop(0)
-            else:
-                tokens[i, 0] = (s.generated[-1] if s.generated else 0)
-        batch = {"tokens": tokens, "cache_len": lens}
-        logits, self.cache = self.replica._decode(self.cache, batch)
-        self.steps += 1
-        # the device->host copy of the argmax synchronises with the device
-        argmax = torch.argmax(logits, dim=-1).cpu().numpy()
-        done: List[int] = []
-        for i, s in enumerate(self.slots):
-            if not s.active:
-                continue
-            s.length += 1
-            if s.pending:
-                continue               # still consuming the prompt
-            s.generated.append(int(argmax[i]))
-            if (len(s.generated) >= s.max_new
-                    or s.length >= self.replica.max_seq - 1):
-                self.finished[s.request_id] = s.generated
-                done.append(s.request_id)
-                s.active = False
+        with trace.step("batcher.step"):
+            tokens = np.zeros((self.max_slots, 1), np.int32)
+            lens = np.zeros((self.max_slots,), np.int32)
+            for i, s in enumerate(self.slots):
+                lens[i] = s.length
+                if not s.active:
+                    continue
+                if s.pending:
+                    tokens[i, 0] = s.pending.pop(0)
+                else:
+                    tokens[i, 0] = (s.generated[-1] if s.generated else 0)
+            batch = {"tokens": tokens, "cache_len": lens}
+            logits, self.cache = self.replica._decode(self.cache, batch)
+            self.steps += 1
+            # the device->host copy of the argmax synchronises with the
+            # device
+            with trace.step("batcher.read"):
+                argmax = torch.argmax(logits, dim=-1).cpu().numpy()
+            done: List[int] = []
+            for i, s in enumerate(self.slots):
+                if not s.active:
+                    continue
+                s.length += 1
+                if s.pending:
+                    continue               # still consuming the prompt
+                s.generated.append(int(argmax[i]))
+                if (len(s.generated) >= s.max_new
+                        or s.length >= self.replica.max_seq - 1):
+                    self.finished[s.request_id] = s.generated
+                    done.append(s.request_id)
+                    s.active = False
         return done
 
     def abort(self) -> List[int]:

@@ -24,8 +24,8 @@ What a first replica of a configuration pays and a later one does not:
     every replica of the entry clones and materialises.
 
 What every replica pays once per signature, at creation: its own capture
-(``WARM_STEPS`` eager steps, then the capture). ``warm()`` does both and
-times them with a device synchronise before the clock is read.
+(``WARM_STEPS`` eager steps, then the capture). ``warm()`` does both; their
+seconds are those of their spans (``backend.warm``, ``backend.capture``).
 
 Keying is ``(ArchConfig, RunConfig, mode)`` as in the reference (frozen
 dataclasses, so they hash structurally), plus a per-entry ``shapes`` table
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import copy
 import threading
-import time
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -48,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.compat import DeviceLike, resolve_device, sync, warm_stream
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
@@ -98,7 +98,10 @@ class DecodeExecutable:
         self.graph = None
         self.replay_counts: Dict[str, int] = {}   # launches of one replay
         self.warm_steps = self.replays = self.eager_steps = 0
-        self.capture_s: Optional[float] = None    # host seconds of capture
+        # seconds of the warm-up steps (their device work included) and of
+        # the capture, from the clock readings of their spans
+        self.warm_s: Optional[float] = None
+        self.capture_s: Optional[float] = None
         if self.device.type == "cuda":
             self._pinned_tokens = torch.zeros((b, 1), dtype=torch.int32,
                                               pin_memory=True)
@@ -137,8 +140,10 @@ class DecodeExecutable:
             if self.device.type == "cuda":
                 self._capture(steps)
             else:
-                for _ in range(steps):
-                    self._step()
+                with trace.Span("backend.warm") as sp:
+                    for _ in range(steps):
+                        self._step()
+                self.warm_s = sp.seconds
                 self.warm_steps += steps
         self.reset()
 
@@ -149,36 +154,42 @@ class DecodeExecutable:
         capture is not a run) and kept as what a replay launches."""
         side = warm_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for i in range(steps):
-                if i < steps - 1:
-                    self._step()
-                    continue
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._step()
-                except RuntimeError as e:
-                    raise RuntimeError(
-                        f"{self.who}.decode_step reads the device on the "
-                        f"host, so it cannot be captured: {e}") from e
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
+        with trace.Span("backend.warm") as sp:
+            with torch.cuda.stream(side):
+                for i in range(steps):
+                    if i < steps - 1:
+                        self._step()
+                        continue
+                    mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        self._step()
+                    except RuntimeError as e:
+                        raise RuntimeError(
+                            f"{self.who}.decode_step reads the device on "
+                            f"the host, so it cannot be captured: {e}") \
+                            from e
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+            # the steps' device work belongs to the warm-up (the capture
+            # would wait for it first)
+            sync(self.device)
+        self.warm_s = sp.seconds
         self.warm_steps += steps
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                logits = self._step()
-        except Exception as e:
-            raise RuntimeError(f"{self.who}.decode_step could not be "
-                               f"captured as a CUDA graph: {e}") from e
-        finally:
-            counted = ops.launch_delta(before)
-            ops.add_launches(counted, times=-1)
-        self.capture_s = time.perf_counter() - t0
+        with trace.Span("backend.capture") as sp:
+            try:
+                with torch.cuda.graph(graph):
+                    logits = self._step()
+            except Exception as e:
+                raise RuntimeError(f"{self.who}.decode_step could not be "
+                                   f"captured as a CUDA graph: {e}") from e
+            finally:
+                counted = ops.launch_delta(before)
+                ops.add_launches(counted, times=-1)
+        self.capture_s = sp.seconds
         self.replay_counts = counted
         self.graph, self.logits = graph, logits
 
@@ -206,9 +217,11 @@ class DecodeExecutable:
         if self.one_length:
             L.check_one_length(lens, self.who)
         with torch.inference_mode():
-            self._stage(tok, lens)
+            with trace.step("batcher.stage"):
+                self._stage(tok, lens)
             if self.graph is not None:
-                self.graph.replay()
+                with trace.step("batcher.replay", timed=True):
+                    self.graph.replay()
                 ops.add_launches(self.replay_counts)
                 self.replays += 1
                 return self.logits
@@ -217,7 +230,8 @@ class DecodeExecutable:
                     f"{self.who}: this decode executable on {self.device} "
                     "was not captured (ExecutableCache.warm captures it); "
                     "a CUDA replica never decodes eagerly")
-            logits = self._step()
+            with trace.step("batcher.replay"):
+                logits = self._step()
             self.eager_steps += 1
             if self.logits is None:
                 self.logits = logits
@@ -235,7 +249,8 @@ class CacheEntry:
     run_cfg: RunConfig
     mode: str
     model: object = None           # parameter-free skeleton (meta device)
-    # (cache length, batch, device type) -> wall seconds of its first warm
+    # (cache length, batch, device type) -> seconds of its first warm-up
+    # and capture
     shapes: Dict[Tuple[int, int, str], float] = field(default_factory=dict)
     # replica model -> {(cache length, batch): its DecodeExecutables}, the
     # first the one ``warm`` built, each later one a cache of its own; held
@@ -320,18 +335,14 @@ class ExecutableCache:
         if model is None:
             model = entry.instantiate(device).init_params(
                 torch.Generator(device=device).manual_seed(0))
-        sync(device)
-        t0 = time.perf_counter()
         exe = DecodeExecutable(model, shape)
         exe.warm()
-        sync(device)
-        dt = time.perf_counter() - t0
         self.warm_steps += exe.warm_steps
         entry.executables.setdefault(model, {}).setdefault(
             (shape.seq_len, shape.global_batch), []).append(exe)
         if not new:
             return entry, 0.0, exe
-        entry.shapes[key] = dt
+        dt = entry.shapes[key] = exe.warm_s + (exe.capture_s or 0.0)
         return entry, dt, exe
 
     def warm(self, cfg: ArchConfig, shape: ShapeSpec,
@@ -340,10 +351,11 @@ class ExecutableCache:
         """Build ``model``'s decode executable of ``shape`` (batch =
         ``shape.global_batch``, cache length ``shape.seq_len``): eager
         steps, then on a CUDA device the capture, the counterpart of the
-        reference's trace and compile. Returns the seconds spent when the
-        signature is new to the entry, else 0.0: a later replica still
-        captures its own graph here (billed to its creation by the caller's
-        clock), but its creation is not cold. ``model`` is a materialised
+        reference's trace and compile. Returns the seconds of the warm-up
+        and capture (their spans') when the signature is new to the entry,
+        else 0.0: a later replica still captures its own graph here (billed
+        to its creation by the caller's clock), but its creation is not
+        cold. ``model`` is a materialised
         module (a replica's own); without one a throw-away module drawn
         from seed 0 warms the signature and is dropped with its graph."""
         return self._warm(cfg, shape, run_cfg, mode, model, device)[1]

@@ -36,7 +36,8 @@ port = _load("torch_churn_live", BENCH)
 ADDED_GRID = {"device", "width", "create_errors", "leaked_replicas",
               "bad_tokens", "executed", "peak_replicas", "warm_steps",
               "decode_steps", "creates", "cold_build_ms_median",
-              "cold_capture_ms_median", "warm_build_ms_median",
+              "cold_warmup_ms_median", "cold_capture_ms_median",
+              "warm_build_ms_median", "warm_warmup_ms_median",
               "warm_capture_ms_median", "solo_checks", "solo_steps"}
 ADDED_COLD_WARM = ADDED_GRID - {"bad_tokens", "executed", "peak_replicas",
                                 "solo_checks", "solo_steps"}
@@ -84,33 +85,34 @@ def test_cold_warm_point_splits_where_the_reference_does(ref):
     assert got["n_warm"] == want["n_warm"] == 4
     assert [r["cold"] for r in got["creates"]] == [True] + [False] * 4
     for r in got["creates"]:
-        assert r["build_s"] > 0 and r["capture_s"] > 0
-        # the two timed parts lie inside the creation's wall time
-        assert r["build_s"] + r["capture_s"] <= r["wall_s"] + 1e-5
+        # the CPU warms the step up and captures nothing
+        assert r["build_s"] > 0 and r["warm_s"] > 0 and r["capture_s"] is None
+        # the timed parts lie inside the creation's wall time
+        assert r["build_s"] + r["warm_s"] <= r["wall_s"] + 1e-5
     assert got["exec_cache"]["misses"] == want["exec_cache"]["misses"] == 1
     assert got["leaked_replicas"] == 0 and port.failures(got) == []
 
 
 def test_creations_are_timed_on_the_ports_own_path(monkeypatch):
-    """The bench times ``LiveBackend.create_hook`` and the sandbox it
-    builds as they are: a delay put into the sandbox's construction, before
+    """The bench reads the split ``LiveBackend.create_hook`` records of the
+    sandbox it builds: a delay put into the replica's construction, before
     its warm-up, shows in every creation's ``build_s``."""
-    from repro_torch.live import backend
+    from repro_torch.serving import engine
 
-    real, made = backend._ProcessSandbox.__init__, []
+    real, made = engine.Replica.__init__, []
 
     def slow(self, *a, **kw):
         made.append(1)
         time.sleep(0.05)
         real(self, *a, **kw)
 
-    monkeypatch.setattr(backend._ProcessSandbox, "__init__", slow)
+    monkeypatch.setattr(engine.Replica, "__init__", slow)
     got = port.live_cold_warm_point("process", width="reduced",
                                     device="cpu")
     assert len(made) == len(got["creates"]) == 5
     for r in got["creates"]:
-        assert r["build_s"] >= 0.05 and r["capture_s"] > 0
-        assert r["wall_s"] >= 0.05 + r["capture_s"]
+        assert r["build_s"] >= 0.05 and r["warm_s"] > 0
+        assert r["wall_s"] >= 0.05 + r["warm_s"]
 
 
 def test_smoke_section_candidate_has_the_references_fields(monkeypatch):
@@ -236,7 +238,7 @@ def test_captures_warm_up_on_one_stream_a_device(monkeypatch):
     a fresh pool stream, where cuBLAS left a 32 MiB workspace behind: the
     warm-up stream is now one for each device, reused. Two decode captures
     and a train step's warm-ups, run here on the CPU with the CUDA stream,
-    graph and sync-mode calls faked, make one stream."""
+    graph, synchronise and sync-mode calls faked, make one stream."""
     from repro_torch import compat
     from repro_torch.serving.exec_cache import DecodeExecutable
     from repro_torch.train import train_step
@@ -257,7 +259,8 @@ def test_captures_warm_up_on_one_stream_a_device(monkeypatch):
                        ("stream", lambda s: contextlib.nullcontext()),
                        ("graph", lambda g, **kw: contextlib.nullcontext()),
                        ("get_sync_debug_mode", lambda: 0),
-                       ("set_sync_debug_mode", lambda mode: None)):
+                       ("set_sync_debug_mode", lambda mode: None),
+                       ("synchronize", lambda device=None: None)):
         monkeypatch.setattr(torch.cuda, name, fake)
     a, b = torch.device("cuda", 0), torch.device("cuda", 1)
     steps = []
