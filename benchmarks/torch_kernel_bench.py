@@ -180,7 +180,8 @@ def moe_group_sizes(T, k, E, seed):
 # zero initial state), K4 at zamba2-2.7b's (B and C broadcast over the
 # heads, fp32 as the model passes them, zero initial state), the grouped
 # GEMM and the fused gate/up pass at arctic-480b's decode gate (16 rows
-# over 128 experts: 8 slots, top-2)
+# over 128 experts: 8 slots, top-2), the WKV6 decode step at rwkv6-7b's
+# captured step (64 slots, 64 heads of 64, every row continuing)
 MAIN = {
     "decode_attention": dict(B=8, Smax=1024, Hq=15, Hkv=5, D=64,
                              dtype=torch.bfloat16, lens=RAGGED),
@@ -195,6 +196,7 @@ MAIN = {
                            dtype=torch.bfloat16),
 }
 MAIN["grouped_swiglu"] = dict(MAIN["grouped_matmul"], fused=True)
+MAIN["wkv6_decode"] = dict(B=64, H=64, dk=64, dv=64, dtype=torch.bfloat16)
 
 
 def time_ms(fn, n_inner: int = 1, reps: int = 20, warmup: int = 3) -> float:
@@ -282,6 +284,19 @@ def wkv6_cost(B, S, H, dk, dv, chunk, item):
             float(B * H * n_chunks * products))
 
 
+def wkv6_decode_cost(B, H, dk, dv, item, live=None):
+    """The WKV6 decode step's bytes (r, k, v in, w, u, the state of the
+    ``live`` rows read, every row's state written, y, the lengths) and its
+    fp32 operations (the readout r S, the update w S + k v, the bonus);
+    ``live`` (default: every row) is the rows whose length is not 0."""
+    live = B if live is None else live
+    nbytes = (B * H * (2 * dk + dv) * item          # r, k, v
+              + B * H * dk * 4 + H * dk * 4         # w, u
+              + (live + B) * H * dk * dv * 4        # state read, written
+              + B * H * dv * 4 + B * 4)             # y, lengths
+    return nbytes, float(B * H * (5 * dk * dv + 3 * dk + 2 * dv))
+
+
 def ssd_cost(b, S, H, P, N, chunk, item, broadcast):
     """K4's bytes, operations, and the products among them."""
     n_chunks = S // chunk
@@ -347,6 +362,18 @@ def wkv6_card_inputs(B, S, H, dk, dv, dtype, seed, strong_decay=False):
     u = n(H, dk) * 0.3
     s0 = n(B, H, dk, dv) * 0.1
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
+
+
+def wkv6_decode_inputs(B, H, dk, dv, dtype, n_layers, seed):
+    """One token of ``wkv6_card_inputs`` and a cache of ``n_layers`` states
+    (n_layers, B, H, dk, dv) drawn as its s0, every row continuing
+    (lengths 1 to B)."""
+    r, k, v, w, u, _ = wkv6_card_inputs(B, 1, H, dk, dv, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    states = torch.randn((n_layers, B, H, dk, dv), generator=g,
+                         device="cuda") * 0.1
+    lens = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+    return r, k, v, w, u, states, lens
 
 
 def ssd_card_inputs(b, S, H, P, N, dtype, broadcast, seed, init_scale=False):
@@ -526,6 +553,37 @@ def bench_wkv6():
             **bound(nbytes, flops, s["dtype"])}
 
 
+def bench_wkv6_decode():
+    """One launch a layer on that layer's slice of a 32-layer cache (each
+    launch finds its state out of L2, as in rwkv6-7b's step), in place;
+    ``step_ms`` is the 32 launches of a step. The plain form is
+    ``chunked.wkv6_decode`` with the rows' keep and the copy back."""
+    from repro_torch.kernels import ops
+
+    s, L = MAIN["wkv6_decode"], DECODE_LAYERS
+    r, k, v, w, u, states, lens = wkv6_decode_inputs(**s, n_layers=L,
+                                                     seed=SEED + 5)
+    got, want = states[0].clone(), states[0].clone()
+    err = _err(ops.wkv6_decode(r, k, v, w, u, got, lens),
+               ops.wkv6_decode(r, k, v, w, u, want, lens, impl="plain"))
+
+    def each(impl):
+        return lambda: [ops.wkv6_decode(r, k, v, w, u, states[i], lens,
+                                        impl=impl) for i in range(L)]
+
+    rec = {"max_abs_err": max(err, _err(got, want)),
+           **_timed(each("kernel"), each("plain"), None, L),
+           "library": "none: no PyTorch call computes WKV6",
+           **bound(*wkv6_decode_cost(s["B"], s["H"], s["dk"], s["dv"],
+                                     r.element_size()), torch.float32)}
+    rec.update(layers=L, step_ms=rec["ms"] * L,
+               plain_step_ms=rec["plain_ms"] * L,
+               bound_step_ms=rec["bound_ms"] * L)
+    del states
+    torch.cuda.empty_cache()
+    return rec
+
+
 def bench_ssd():
     from repro_torch.kernels import ops
 
@@ -585,7 +643,8 @@ CUDA_ROWS = (("decode_attention", "K1", bench_decode),
              ("ssd", "K4", bench_ssd),
              ("grouped_matmul", "B5", lambda: bench_grouped("grouped_matmul")),
              ("grouped_swiglu", "B5f",
-              lambda: bench_grouped("grouped_swiglu")))
+              lambda: bench_grouped("grouped_swiglu")),
+             ("wkv6_decode", "K3d", bench_wkv6_decode))
 
 
 def cuda_kernels(reporter, device) -> list:

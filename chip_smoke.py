@@ -37,7 +37,12 @@ JSON line:
            0), K not a multiple of 8, and eager against graph replay, with
            ``torch._grouped_mm`` (twice, and the epilogue, for the fused
            pass) timed beside them and each timed row's share of its byte
-           bound
+           bound; the WKV6 decode step (one token, in place in the cache)
+           at rwkv6-7b's captured step, a reduced RWKV6's and one mesh
+           rank's heads, with rows at length 0 whose stale (NaN) state must
+           not leak, every head size up to 128, the other layers' slices
+           untouched, and eager against graph replay, within 1e-5 / 1e-6
+           of its plain form, timed over the 32 layers of a step
   designs  the recurrence kernels' other block shapes (``design`` of the
            wrappers) at the main paths' shapes, timed in turns
 
@@ -64,10 +69,12 @@ beside the eager step's time and host syncs:
                the same replica, tokens equal (each ``new_cache`` its own
                captured executable)
   rwkv6-7b     model: the same legs at full width (forward on the WKV6
-               kernel); serve: the same path and traffic into
-               RWKV6Model.decode_step, plus one probe request admitted into
-               a slot that has served before, whose tokens must equal a solo
-               Replica.generate on its sandbox's weights
+               kernel, decode on the WKV6 decode step); serve: the same
+               path and traffic into RWKV6Model.decode_step (a replay
+               launches the decode step once a layer), plus one probe
+               request admitted into a slot that has served before, whose
+               tokens must equal the same request alone in a batcher of
+               as many slots on its sandbox's weights
   zamba2-2.7b  model: the same legs at full width (forward on the SSD and
                flash-attention kernels at head_dim 80, decode on the
                flash-decode kernel), the Mamba matrices drawn at their
@@ -221,11 +228,11 @@ import torch  # noqa: E402
 
 # the kernels' main cases and their timing, shared with the kernel bench
 from benchmarks.torch_kernel_bench import (  # noqa: E402
-    FLASH_CALLS, MAIN, RAGGED, SEED, bound, decode_cost, decode_inputs,
-    device_ms, flash_cost, flash_inputs, grouped_cost, grouped_inputs,
-    grouped_library, moe_group_sizes, sdpa_decode, sdpa_prefill,
-    ssd_card_inputs, ssd_cost, swiglu_library, time_ms, wkv6_card_inputs,
-    wkv6_cost)
+    DECODE_LAYERS, FLASH_CALLS, MAIN, RAGGED, SEED, bound, decode_cost,
+    decode_inputs, device_ms, flash_cost, flash_inputs, grouped_cost,
+    grouped_inputs, grouped_library, moe_group_sizes, sdpa_decode,
+    sdpa_prefill, ssd_card_inputs, ssd_cost, swiglu_library, time_ms,
+    wkv6_card_inputs, wkv6_cost, wkv6_decode_cost, wkv6_decode_inputs)
 from repro_torch.launch import roofline  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
@@ -594,6 +601,131 @@ def check_wkv6(name, B, S, H, dk, dv, chunk, dtype, state=True, timed=False,
                    library_note="no PyTorch call computes WKV6")
         rec["ms_again"] = device_ms(run_kernel)
         rec["ms_third"] = device_ms(run_kernel)
+    return rec
+
+
+# the WKV6 decode step against its plain form: both fp32 FMAs in another
+# order, so an allclose at these (no TF32 on either side)
+DECODE_STEP_RTOL, DECODE_STEP_ATOL = 1e-5, 1e-6
+# a freed slot's stale state, as the plain form reads it (it multiplies by
+# 0, so NaN would stay NaN); the kernel, which must not read it, gets NaN
+STALE = 1e6
+
+
+def step_excess(got, want) -> float:
+    """max(|got - want| - atol - rtol |want|): <= 0 is an allclose at the
+    decode step's tolerances."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - DECODE_STEP_ATOL
+                  - DECODE_STEP_RTOL * want.abs()).max())
+
+
+def check_wkv6_decode(name, B, H, dk, dv, dtype, lens=None, timed=False,
+                      scalar_len=None):
+    """The WKV6 decode step on the middle layer of a three-layer cache
+    against its plain form on a copy: y and the new state within
+    DECODE_STEP_RTOL / ATOL, the state written in the cache's own storage
+    and the other layers' slices untouched. ``lens`` (default: every row
+    continuing) may hold 0s: such a row's slice holds NaN in the kernel's
+    cache and STALE in the plain form's, and must come out as a start from
+    zero state. ``scalar_len`` passes one length for every row."""
+    from repro_torch.kernels import ops
+
+    r, k, v, w, u, states, lens_t = wkv6_decode_inputs(B, H, dk, dv, dtype,
+                                                       3, SEED + 5)
+    if lens is not None:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cache_len = lens_t if scalar_len is None else scalar_len
+    starts = (lens_t == 0) if scalar_len is None \
+        else torch.full((B,), scalar_len == 0, device="cuda")
+    plain_cache = states.clone()
+    plain_cache[1][starts] = STALE
+    states[1][starts] = float("nan")
+    before = states.clone()
+    slot = states[1]
+    ptr = slot.data_ptr()
+    y = ops.wkv6_decode(r, k, v, w, u, slot, cache_len)
+    want_y = ops.wkv6_decode(r, k, v, w, u, plain_cache[1], cache_len,
+                             impl="plain")
+    torch.cuda.synchronize()
+    zero_y = ops.wkv6_decode(r, k, v, w, u, torch.zeros_like(slot), 1,
+                             impl="plain")
+    rec = {"case": name, "kernel": "wkv6_decode",
+           "shape": {"B": B, "H": H, "dk": dk, "dv": dv},
+           "dtype": dt_name(dtype), "rows_at_length_0": int(starts.sum()),
+           "scalar_len": scalar_len,
+           "max_abs_err": max_abs_err(y, want_y),
+           "state_max_abs_err": max_abs_err(slot, plain_cache[1]),
+           "allclose_excess": max(step_excess(y, want_y),
+                                  step_excess(slot, plain_cache[1])),
+           "rtol": DECODE_STEP_RTOL, "atol": DECODE_STEP_ATOL,
+           "in_place": slot.data_ptr() == ptr,
+           "other_layers_untouched": bool(
+               torch.equal(states[0], before[0])
+               and torch.equal(states[2], before[2]))}
+    if starts.any():
+        rec["started_rows_excess_vs_zero_state"] = step_excess(
+            y[starts], zero_y[starts])
+    for t in (y, slot):
+        require(bool(torch.isfinite(t).all()), f"{name}: not finite")
+    require(rec["allclose_excess"] <= 0,
+            f"{name}: outside allclose(rtol={DECODE_STEP_RTOL}, "
+            f"atol={DECODE_STEP_ATOL}): {rec}")
+    require(rec["in_place"] and rec["other_layers_untouched"],
+            f"{name}: the cache was not written in place alone: {rec}")
+    require(rec.get("started_rows_excess_vs_zero_state", 0.0) <= 0,
+            f"{name}: a row at length 0 did not start from zero: {rec}")
+    if timed:
+        L = DECODE_LAYERS
+        del states, plain_cache, before
+        *_, cache, lens_t = wkv6_decode_inputs(B, H, dk, dv, dtype, L,
+                                               SEED + 5)
+
+        def each(impl):
+            return lambda: [ops.wkv6_decode(r, k, v, w, u, cache[i], lens_t,
+                                            impl=impl) for i in range(L)]
+
+        nbytes, flops = wkv6_decode_cost(B, H, dk, dv, r.element_size())
+        rec.update(bound(nbytes, flops, torch.float32))
+        rec.update(layers=L, ms=device_ms(each("kernel"), L),
+                   plain_ms=device_ms(each("plain"), L, reps=5),
+                   eager_ms=time_ms(each("kernel"), L),
+                   library_ms=None,
+                   library_note="no PyTorch call computes WKV6")
+        rec["ms_again"] = device_ms(each("kernel"), L)
+        rec.update(step_ms=rec["ms"] * L, plain_step_ms=rec["plain_ms"] * L,
+                   bound_step_ms=rec["bound_ms"] * L,
+                   bound_share=rec["bound_ms"] / rec["ms"])
+        del cache
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_wkv6_decode_graph(name, B, H, dk, dv, dtype):
+    """The decode step eagerly, then captured into a CUDA graph and
+    replayed, each from the same cache: y and the new state bit-equal (no
+    atomics, no data-dependent order), the replay writing the captured
+    slice in place."""
+    from repro_torch.kernels import ops
+
+    r, k, v, w, u, states, lens = wkv6_decode_inputs(B, H, dk, dv, dtype, 1,
+                                                     SEED + 7)
+    lens[::3] = 0
+    start = states.clone()
+    y_eager = ops.wkv6_decode(r, k, v, w, u, states[0], lens).clone()
+    s_eager = states.clone()
+    states.copy_(start)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_static = ops.wkv6_decode(r, k, v, w, u, states[0], lens)
+    states.copy_(start)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = [torch.equal(y_static, y_eager), torch.equal(states, s_eager)]
+    rec = {"case": name, "kernel": "wkv6_decode", "dtype": dt_name(dtype),
+           "y_and_state_eager_vs_graph_bit_equal": equal}
+    require(all(equal), f"{name}: eager and replay differ: {equal}")
     return rec
 
 
@@ -1102,6 +1234,43 @@ def phase_kernels() -> dict:
         check_recurrence_graph("wkv6/graph-replay/bf16", "wkv6"),
         check_wkv6("wkv6/misaligned/bf16", 2, 128, 8, 64, 64, 32, bf16,
                    misaligned=True),
+        # the WKV6 decode step at rwkv6-7b's captured step (64 slots, 64
+        # heads of 64, bf16 products) and in fp32, at a reduced RWKV6's
+        # (B=8, 16 heads of 32), at one rank's 16 heads on (1, 4); rows at
+        # length 0 among running ones (their stale state must not leak),
+        # one scalar length, every head size class up to 128 (dv a
+        # multiple of 4 that is no power of 2 among them); eager against
+        # graph replay
+        check_wkv6_decode("wkv6-decode/main/bf16", **MAIN["wkv6_decode"],
+                          timed=True),
+        check_wkv6_decode("wkv6-decode/main/fp32", 64, 64, 64, 64, f32,
+                          timed=True),
+        check_wkv6_decode("wkv6-decode/B8-H16-d32/fp32", 8, 16, 32, 32, f32),
+        check_wkv6_decode("wkv6-decode/B8-H16-d32/bf16", 8, 16, 32, 32, bf16),
+        check_wkv6_decode("wkv6-decode/mesh-rwkv6-rank/bf16", 64, 16, 64, 64,
+                          bf16, timed=True),
+        check_wkv6_decode("wkv6-decode/mesh-rwkv6-rank/fp32", 64, 16, 64, 64,
+                          f32),
+        check_wkv6_decode("wkv6-decode/len0-mixed/bf16", 64, 64, 64, 64, bf16,
+                          lens=[0, 1, 0, 700] * 16),
+        check_wkv6_decode("wkv6-decode/len0-mixed/fp32", 8, 16, 32, 32, f32,
+                          lens=[0, 3, 5, 0, 0, 1, 2, 0]),
+        check_wkv6_decode("wkv6-decode/all-len0/bf16", 4, 8, 64, 64, bf16,
+                          lens=[0, 0, 0, 0]),
+        check_wkv6_decode("wkv6-decode/scalar-len/bf16", 4, 8, 64, 64, bf16,
+                          scalar_len=17),
+        check_wkv6_decode("wkv6-decode/scalar-len0/fp32", 4, 8, 64, 64, f32,
+                          scalar_len=0),
+        check_wkv6_decode("wkv6-decode/d16-dv24/fp32", 3, 5, 16, 24, f32,
+                          lens=[0, 4, 9]),
+        check_wkv6_decode("wkv6-decode/d4/fp32", 2, 3, 4, 4, f32),
+        check_wkv6_decode("wkv6-decode/d100/bf16", 3, 7, 100, 100, bf16,
+                          lens=[2, 0, 1]),
+        check_wkv6_decode("wkv6-decode/d128/fp32", 4, 32, 128, 128, f32,
+                          lens=[1, 0, 2, 3]),
+        check_wkv6_decode("wkv6-decode/d128/bf16", 64, 32, 128, 128, bf16),
+        check_wkv6_decode_graph("wkv6-decode/graph-replay/bf16", 64, 64, 64,
+                                64, bf16),
         # K4 at zamba2-2.7b's forward (80 heads, P = N = 64, chunk 64, fp32
         # as the model passes them, B/C broadcast over heads) and the edges
         check_ssd("ssd/main/fp32", **MAIN["ssd"], state=False, timed=True),
@@ -1201,7 +1370,8 @@ def phase_kernels() -> dict:
             "wkv6": by_case["wkv6/main/bf16"],
             "ssd": by_case["ssd/main/fp32"],
             "grouped_matmul": by_case["grouped/arctic-decode-gate/bf16"],
-            "grouped_swiglu": by_case["swiglu/arctic-decode/bf16"]}
+            "grouped_swiglu": by_case["swiglu/arctic-decode/bf16"],
+            "wkv6_decode": by_case["wkv6-decode/main/bf16"]}
 
 
 # -- phase: model ---------------------------------------------------------------
@@ -1516,6 +1686,10 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
         eager_ms = (time.perf_counter() - t0) / n_steps * 1e3
         eager_syncs = host_syncs(lambda: [eager_step() for _ in range(2)])
         del copy
+    if cfg.family == "ssm":
+        require(exe.replay_counts == {"wkv6_decode": cfg.n_layers},
+                f"{cfg.name}: a replay launches {exe.replay_counts}, not "
+                f"wkv6_decode once a layer ({cfg.n_layers})")
     check = captured_vs_eager(exe, tok, lens + 1)
     moe = moe_launches(exe, tok, lens + 2) if cfg.family == "moe" else None
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
@@ -1633,12 +1807,14 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
     sandbox's weights) is the first request, or with ``reused_probe`` one
     more request sent after the 16 are done, which the batcher admits into
     a slot that has served or idled through earlier steps: a recurrent
-    model that leaked a slot's state into its next request fails it.
+    model that leaked a slot's state into its next request fails it (its
+    solo twin is then alone in a batcher of the same slots, not a batch of
+    one).
     ``max_scale`` caps the function's sandboxes (one replica at a time
     when a replica needs most of the card). Returns the line it prints."""
     from repro_torch.kernels import ops
     from repro_torch.live import LiveFunctionSpec
-    from repro_torch.serving.engine import Replica
+    from repro_torch.serving.engine import ContinuousBatcher, Replica
     from repro_torch.serving.exec_cache import ExecutableCache
 
     class CountingBackend(recording_backend()):
@@ -1709,9 +1885,13 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
     # every batcher step is a replay, which adds what its capture counted;
     # the eager warm-up steps before each capture count as they run
     if cfg.family == "ssm":
-        # the recurrent decode step is plain arithmetic: no kernel
-        require(not any(moved.values()),
-                f"kernel launches on the recurrent decode path: {moved}")
+        # the recurrent decode step's one kernel a layer: the WKV6 step
+        others = {k: n for k, n in moved.items() if k != "wkv6_decode" and n}
+        require(moved["wkv6_decode"] == (steps + warm_steps) * cfg.n_layers
+                and not others,
+                f"wkv6_decode launches {moved['wkv6_decode']} != (replays "
+                f"{steps} + warm-up steps {warm_steps}) x layers "
+                f"{cfg.n_layers}, or other kernels launched: {others}")
     else:
         require(moved["decode_attention"]
                 == (steps + warm_steps) * cfg.n_layers,
@@ -1749,10 +1929,26 @@ def phase_serve(cfg, reused_probe: bool = False, max_scale=None,
     torch.cuda.empty_cache()
 
     # the probe against a fresh replica with its sandbox's seed: the same
-    # weights, alone in a batch of one, must give the same greedy tokens
-    solo = Replica(cfg, rng_seed=where["sandbox"], max_seq=MAX_SEQ,
-                   run_cfg=spec.run_cfg, exec_cache=cache).generate(
-        probe_prompt, max_new_tokens=MAX_NEW)
+    # weights, alone in a batch, must give the same greedy tokens. The
+    # reused-slot probe (which ran alone in its sandbox's batch of
+    # MAX_SLOTS) runs alone in a batcher of MAX_SLOTS slots: at one row
+    # cuBLAS takes other paths than at eight, and rwkv6-7b's bf16 logits
+    # then part by up to ~0.3 on either WKV6 decode form (measured on one
+    # H100), enough to flip a near-tie of greedy tokens; at one shape no
+    # row's arithmetic depends on another's, so any difference is state
+    # that the slot's earlier requests left behind
+    solo_rep = Replica(cfg, rng_seed=where["sandbox"], max_seq=MAX_SEQ,
+                       run_cfg=spec.run_cfg, exec_cache=cache)
+    if reused_probe:
+        twin = ContinuousBatcher(solo_rep, max_slots=MAX_SLOTS)
+        rid = twin.add_request(probe_prompt, max_new=MAX_NEW)
+        while rid not in twin.finished:
+            twin.step()
+        solo = twin.finished[rid]
+        del twin
+    else:
+        solo = solo_rep.generate(probe_prompt, max_new_tokens=MAX_NEW)
+    del solo_rep
     got = probe.request.tokens
     same = sum(int(a == b) for a, b in zip(solo, got))
     require(solo == got,
@@ -2147,6 +2343,10 @@ def probe_grad_refusal() -> list:
         "grouped_swiglu": lambda q: ops.grouped_swiglu(
             q.reshape(64, 128), t(2, 128, 64), t(2, 128, 64),
             torch.tensor([30, 34], device="cuda")),
+        "wkv6_decode": lambda q: ops.wkv6_decode(
+            q[:, :1].contiguous(), t(1, 1, 2, 64), t(1, 1, 2, 64),
+            torch.rand((1, 1, 2, 64), device="cuda"), t(2, 64),
+            t(1, 2, 64, 64), 1),
     }
     refused = []
     for name, call in cases.items():
@@ -4153,10 +4353,13 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     # lax.ragged_dot twice (gate, up) and silu(g) * u, fused
     "grouped_swiglu": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                        "src/repro/models/moe.py:128"),
+    # not a Pallas kernel: the reference decodes in jnp
+    "wkv6_decode": ("src/repro_torch/kernels/csrc/wkv6_decode.cu",
+                    "src/repro/kernels/chunked.py:88"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
-                "rwkv6-7b": ("wkv6",),
+                "rwkv6-7b": ("wkv6", "wkv6_decode"),
                 "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd"),
                 "arctic-480b": ("decode_attention", "flash_attention",
                                 "grouped_matmul", "grouped_swiglu"),
@@ -4177,7 +4380,7 @@ PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
                 "mesh/arctic-480b": ("decode_attention", "flash_attention",
                                      "grouped_matmul", "grouped_swiglu"),
                 "mesh/train-smollm-360m": (),
-                "mesh/rwkv6-7b": ("wkv6",),
+                "mesh/rwkv6-7b": ("wkv6", "wkv6_decode"),
                 "mesh/zamba2-2.7b": ("decode_attention", "flash_attention",
                                      "ssd"),
                 "mesh/whisper-small": ("decode_attention", "flash_attention"),

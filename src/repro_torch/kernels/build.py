@@ -151,6 +151,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp,                      # y, s_out
         ci, ci, ci, ci, ci, ci,      # B, S, H, dk, dv, chunk
         ci, ci, vp]                  # is_bf16, design, stream
+    lib.repro_wkv6_decode.restype = ci
+    lib.repro_wkv6_decode.argtypes = [
+        vp, vp, vp, vp, vp,          # r, k, v, w, u
+        vp, vp, vp,                  # state (in place), lens, y
+        ci, ci, ci, ci,              # B, H, dk, dv
+        ci, vp]                      # is_bf16, stream
     cl = ctypes.c_longlong
     lib.repro_ssd_chunk.restype = ci
     lib.repro_ssd_chunk.argtypes = [

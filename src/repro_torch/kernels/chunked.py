@@ -68,7 +68,11 @@ def wkv6_chunked(r, k, v, w, u, initial_state=None, chunk: int = 64):
 
 
 def wkv6_decode(r, k, v, w, u, state):
-    """Single-token step: r,k,v,w: (B,1,H,d); state: (B,H,dk,dv)."""
+    """Single-token step: r,k,v,w: (B,1,H,d); state: (B,H,dk,dv). The
+    plain form of ``ops.wkv6_decode`` (``wkv6_decode.py``), which runs it on
+    the CPU and with ``attn_impl="plain"``; on the card the model's decode
+    step runs the kernel ``csrc/wkv6_decode.cu`` instead, which chip_smoke.py
+    holds against this form."""
     rt, kt, vt, wt = (x[:, 0].float() for x in (r, k, v, w))
     state = state.float()
     kv = kt[..., :, None] * vt[..., None, :]

@@ -24,16 +24,19 @@ from repro_torch.kernels import grouped_gemm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_chunk as _k3
 from repro_torch.kernels import ssd_chunk as _k4
+from repro_torch.kernels import wkv6_decode as _k3d
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.grouped_gemm import (grouped_matmul_plain,
                                               grouped_swiglu_plain)
 from repro_torch.kernels.rwkv6_chunk import wkv6_plain
 from repro_torch.kernels.ssd_chunk import ssd_plain
+from repro_torch.kernels.wkv6_decode import kept, wkv6_decode_plain
 
 _decode_kernel = _k1.decode_attention
 _flash_kernel = _k2.flash_attention
 _wkv6_kernel = _k3.wkv6
+_wkv6_decode_kernel = _k3d.wkv6_decode
 _ssd_kernel = _k4.ssd
 _grouped_kernel = _gmm.grouped_matmul
 _swiglu_kernel = _gmm.grouped_swiglu
@@ -42,7 +45,8 @@ _KERNELS = {"decode_attention": _decode_kernel,
             "wkv6": _wkv6_kernel,
             "ssd": _ssd_kernel,
             "grouped_matmul": _grouped_kernel,
-            "grouped_swiglu": _swiglu_kernel}
+            "grouped_swiglu": _swiglu_kernel,
+            "wkv6_decode": _wkv6_decode_kernel}
 
 
 def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
@@ -82,6 +86,22 @@ def wkv6(r, k, v, w, u, initial_state=None, chunk=64, impl="kernel"):
         return wkv6_plain(r, k, v, w, u, initial_state, chunk=chunk)
     if impl == "reference":
         return ref.wkv6_ref(r, k, v, w, u, initial_state)
+    raise ValueError(impl)
+
+
+def wkv6_decode(r, k, v, w, u, state, cache_len, impl="kernel"):
+    """One token of WKV6 from ``state`` (B, H, dk, dv), the layer's slice
+    of the cache, which every form writes in place: r, k, w (B, 1, H, dk),
+    v (B, 1, H, dv), u (H, dk), cache_len a scalar or (B,) -> y (B, 1, H,
+    dv) fp32. A row whose ``cache_len`` is 0 starts from zero state."""
+    if impl == "kernel":
+        return _wkv6_decode_kernel(r, k, v, w, u, state, cache_len)
+    if impl == "plain":
+        return wkv6_decode_plain(r, k, v, w, u, state, cache_len)
+    if impl == "reference":
+        y, new_state = ref.wkv6_ref(r, k, v, w, u, kept(state, cache_len))
+        state.copy_(new_state)
+        return y
     raise ValueError(impl)
 
 

@@ -2,7 +2,10 @@
 
 Counterpart of ``repro.models.rwkv.RWKV6Model``: token-shift mixing, the
 time-mix block with the WKV6 recurrence (the chunked kernel ``ops.wkv6``
-for ``forward``, the O(1)-state step ``wkv6_decode`` for ``decode_step``),
+for ``forward``, the O(1)-state step ``ops.wkv6_decode`` for
+``decode_step``: on the card the kernel ``csrc/wkv6_decode.cu``, which
+reads and writes each slot's state once in place in the cache; on the CPU
+and with ``attn_impl="plain"`` ``chunked.wkv6_decode``),
 squared-ReLU channel-mix, the dynamic decay LoRA with the per-token
 log-decay clamped to [-0.5, -1e-4] (``kernels/chunked.py`` stability
 contract), ``layer_norm`` as the reference's group-norm approximation, and
@@ -39,7 +42,7 @@ those specs, the collectives written out (each carries its gradient):
 
   * time-mix: ``w_r``/``w_k``/``w_v``/``w_g`` and ``decay_B`` are split by
     columns and ``bonus_u`` by heads, so the rank holds heads ``[r·H/n,
-    (r+1)·H/n)`` and WKV6 (K3 in ``forward``, ``wkv6_decode`` in
+    (r+1)·H/n)`` and WKV6 (K3 in ``forward``, ``ops.wkv6_decode`` in
     ``decode_step``) runs at those heads on this rank's slice of the wkv
     state (``cache_pspecs``); ``w_o`` is split by rows, then ``psum``;
   * the group-norm approximation is a ``layer_norm`` over all D channels,
@@ -68,7 +71,6 @@ from torch import nn
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import ops
-from repro_torch.kernels.chunked import wkv6_decode
 from repro_torch.models import layers as L
 from repro_torch.models import remat
 from repro_torch.models import sharding as S
@@ -294,10 +296,11 @@ class RWKV6Model(nn.Module):
         out = (yf - mu) * torch.rsqrt(var + eps)
         return (out * self._cols(w["gn"]) + self._cols(w["gnb"])).to(y.dtype)
 
-    def _time_mix(self, w, x, prev_shift, wkv_state, decode: bool):
+    def _time_mix(self, w, x, prev_shift, wkv_state, cache_len):
         cfg, run, mesh, m = self.cfg, self.run, self.mesh, self.run.model_axis
         b, s, d = x.shape
         h, hd = cfg.n_heads // self.n_model, self.head_dim
+        decode = cache_len is not None
         xs = self._shifted(x, prev_shift, decode)
         xf = x.float()
         dt = torch_dtype(cfg.dtype)
@@ -311,8 +314,10 @@ class RWKV6Model(nn.Module):
         g = F.silu(torch.matmul(xg, w["w_g"]).float())
         decay = torch.exp(self._decay(w, xw).reshape(b, s, h, hd))
         if decode:
-            y, new_state = wkv6_decode(r, k, v, decay, w["bonus_u"],
-                                       wkv_state)
+            # the cache's slice is read and written in place
+            y = ops.wkv6_decode(r, k, v, decay, w["bonus_u"], wkv_state,
+                                cache_len, impl=run.attn_impl)
+            new_state = wkv_state
         else:
             y, new_state = ops.wkv6(r, k, v, decay, w["bonus_u"], wkv_state,
                                     chunk=run.seq_chunk, impl=run.attn_impl)
@@ -333,10 +338,13 @@ class RWKV6Model(nn.Module):
                           m, -1, mesh)
         return (out.float() * rr).to(x.dtype), xf[:, -1, :]
 
-    def _block(self, w, x, state, decode: bool):
+    def _block(self, w, x, state, cache_len=None):
+        """One layer; ``cache_len`` given (decode), ``state``'s wkv is the
+        cache's slice, written in place."""
+        decode = cache_len is not None
         wkv, sh_a, sh_f = state
         h = L.layer_norm(x, w["ln1"], w["ln1b"])
-        o, wkv_new, sh_a_new = self._time_mix(w, h, sh_a, wkv, decode)
+        o, wkv_new, sh_a_new = self._time_mix(w, h, sh_a, wkv, cache_len)
         x = x + o
         h = L.layer_norm(x, w["ln2"], w["ln2b"])
         o, sh_f_new = self._channel_mix(w, h, sh_f, decode)
@@ -364,7 +372,7 @@ class RWKV6Model(nn.Module):
                  torch.zeros((b, d), **z))
 
         def block(x, w):
-            return self._block(w, x, state, decode=False)[0]
+            return self._block(w, x, state)[0]
 
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
@@ -384,16 +392,15 @@ class RWKV6Model(nn.Module):
         cache_len = torch.as_tensor(batch["cache_len"], device=self.device)
         b = tokens.shape[0]
         # 1 for a row that continues, 0 for a row that starts: multiplied
-        # in, so no branch depends on the lengths
+        # in, so no branch depends on the lengths (``ops.wkv6_decode``
+        # applies the same rule to the wkv state it updates in place)
         keep = (cache_len > 0).to(torch.float32).reshape(-1).expand(b)
         x = self._embed(tokens)
         for i in range(self.cfg.n_layers):
             w = {k: p[i] for k, p in self.layers.items()}
-            state = (cache["wkv"][i] * keep[:, None, None, None],
-                     cache["shift_att"][i] * keep[:, None],
+            state = (cache["wkv"][i], cache["shift_att"][i] * keep[:, None],
                      cache["shift_ffn"][i] * keep[:, None])
-            x, (wkv, sh_a, sh_f) = self._block(w, x, state, decode=True)
-            cache["wkv"][i].copy_(wkv)
+            x, (_, sh_a, sh_f) = self._block(w, x, state, cache_len)
             cache["shift_att"][i].copy_(sh_a)
             cache["shift_ffn"][i].copy_(sh_f)
         return self._logits(x)[:, -1], cache

@@ -131,7 +131,8 @@ def test_sources_name_no_jax_import():
         assert not pat.search(_read(p)), p
 
 
-KERNELS = ["decode_attention", "flash_attention", "rwkv6_chunk", "ssd_chunk"]
+KERNELS = ["decode_attention", "flash_attention", "rwkv6_chunk", "ssd_chunk",
+           "wkv6_decode"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -139,7 +140,8 @@ def test_kernel_sources_are_plain_cuda(name):
     """Every kernel exists as hand-written CUDA C++ with a plain C
     interface: no PyTorch headers (those turn a seconds-long build into
     minutes), no library kernels, and a note naming the TPU kernel it
-    replaces."""
+    replaces (the WKV6 decode step, which has none: the ``jnp`` step the
+    reference decodes with)."""
     csrc = os.path.join(PORT, "kernels", "csrc")
     entry = {"rwkv6_chunk": "repro_wkv6_chunk",
              "ssd_chunk": "repro_ssd_chunk"}.get(name, f"repro_{name}")
@@ -147,7 +149,8 @@ def test_kernel_sources_are_plain_cuda(name):
     assert "__global__" in text and f'extern "C" int {entry}' in text
     assert "torch/" not in text and "ATen" not in text
     assert "cublas" not in text.lower() and "cutlass" not in text.lower()
-    assert f"src/repro/kernels/{name}.py" in text  # names what it replaces
+    replaced = {"wkv6_decode": "chunked"}.get(name, name)
+    assert f"src/repro/kernels/{replaced}.py" in text  # names what it replaces
 
 
 def test_default_device_raises_without_cuda():
@@ -195,6 +198,9 @@ def _meta_call(name):
     if name == "rwkv6_chunk":
         r = meta(1, 16, 2, 16)
         return fn, lambda: fn(r, r, r, r, meta(2, 16), chunk=16)
+    if name == "wkv6_decode":
+        r = meta(1, 1, 2, 16)
+        return fn, lambda: fn(r, r, r, r, meta(2, 16), meta(1, 2, 16, 16), 3)
     x, bc = meta(1, 16, 2, 8), meta(1, 16, 2, 16)
     return fn, lambda: fn(x, meta(1, 16, 2), meta(2), bc, bc, meta(2),
                           chunk=16)

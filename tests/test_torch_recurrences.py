@@ -137,6 +137,76 @@ def test_wkv6_decode_matches_jax():
     _close(st, sj, 2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_len", [[0, 5, 0, 3], [0, 0, 0, 0], 7])
+def test_wkv6_decode_wrapper_on_the_cpu_is_the_plain_form(dtype, cache_len):
+    """``ops.wkv6_decode(impl="kernel")`` on CPU tensors is the plain form
+    bit for bit: y returned, the new state written into the cache's slice
+    itself and no other layer's. A row at length 0 comes out as
+    ``chunked.wkv6_decode`` from zero state, whatever stale state it held;
+    a continuing row as ``chunked.wkv6_decode`` from its state."""
+    _, tdt, tol = DTYPES[dtype]
+    r, k, v, w, u, s0 = _wkv_inputs(4, 1, 3, 16, 24, seed=21)
+    r, k, v = (to_torch(a, tdt) for a in (r, k, v))
+    w, u = to_torch(w), to_torch(u)
+    stale = to_torch(s0) * 50.0                   # stale values in every row
+    caches = {impl: torch.stack([stale, stale.clone()]).clone()
+              for impl in ("kernel", "plain")}
+    ys = {}
+    for impl, cache in caches.items():
+        slot = cache[1]
+        ptr = slot.data_ptr()
+        ys[impl] = ops.wkv6_decode(r, k, v, w, u, slot, cache_len, impl=impl)
+        assert slot.data_ptr() == ptr
+        assert torch.equal(cache[0], stale)       # the other layer's slice
+    assert ys["kernel"].shape == (4, 1, 3, 24)
+    assert ys["kernel"].dtype == torch.float32
+    assert torch.equal(ys["kernel"], ys["plain"])
+    assert torch.equal(caches["kernel"], caches["plain"])
+    lens = np.broadcast_to(np.asarray(cache_len), (4,))
+    for i, n in enumerate(lens):
+        start = stale[i:i + 1] if n > 0 else torch.zeros_like(stale[i:i + 1])
+        y1, s1 = chunked.wkv6_decode(r[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     w[i:i + 1], u, start)
+        assert torch.equal(ys["kernel"][i:i + 1], y1)
+        assert torch.equal(caches["kernel"][1, i:i + 1], s1)
+    # the token-by-token oracle agrees
+    cache = torch.stack([stale, stale.clone()]).clone()
+    y_ref = ops.wkv6_decode(r, k, v, w, u, cache[1], cache_len,
+                            impl="reference")
+    _close(y_ref, ys["plain"], tol * 5)
+    _close(cache[1], caches["plain"][1], tol * 5)
+
+
+@pytest.mark.parametrize("bad", ["dv6", "dk129", "dv132", "u", "state",
+                                 "strided", "dtype"])
+def test_wkv6_decode_kernel_refuses_shapes_it_does_not_take(bad):
+    """The wrapper's checks before a launch (CUDA only, so called here
+    directly): every head size up to 128 with dv a multiple of 4 is taken,
+    anything else raises instead of reaching the kernel."""
+    from repro_torch.kernels import wkv6_decode as wd
+
+    def args(b=2, h=3, dk=16, dv=16):
+        t = lambda *s: torch.zeros(s)  # noqa: E731
+        return [t(b, 1, h, dk), t(b, 1, h, dk), t(b, 1, h, dv),
+                t(b, 1, h, dk), t(h, dk), t(b, h, dk, dv)]
+
+    for dk, dv in ((1, 4), (16, 24), (64, 64), (128, 128), (100, 128)):
+        wd._check(*args(dk=dk, dv=dv))
+    a = {"dv6": args(dv=6), "dk129": args(dk=129, dv=128),
+         "dv132": args(dk=4, dv=132)}.get(bad) or args()
+    if bad == "u":
+        a[4] = torch.zeros(3, 8)
+    elif bad == "state":
+        a[5] = torch.zeros(2, 3, 16, 12)
+    elif bad == "strided":
+        a[5] = torch.zeros(2, 3, 16, 32)[..., :16]
+    elif bad == "dtype":
+        a[1] = a[1].to(torch.bfloat16)
+    with pytest.raises((ValueError, TypeError)):
+        wd._check(*a)
+
+
 def test_wkv6_chunk_size_and_zero_state():
     """The chunk is a tiling choice: every chunk size gives the token-by-
     token answer; no initial state means zeros."""
@@ -283,7 +353,8 @@ def test_ops_dispatch_recurrences_on_the_cpu():
     # no kernel was launched on the CPU, so no counter moved
     assert ops.launch_counts() == before
     assert set(before) == {"decode_attention", "flash_attention", "wkv6",
-                           "ssd", "grouped_matmul", "grouped_swiglu"}
+                           "ssd", "grouped_matmul", "grouped_swiglu",
+                           "wkv6_decode"}
 
 
 # -- attention at head_dim 80 (zamba2-2.7b's shared block) --------------------
