@@ -19,6 +19,7 @@ is set by the mix and the DES's own draws, not by the host's timing.
 from __future__ import annotations
 
 import gc
+import importlib
 import math
 import time
 from dataclasses import dataclass, field
@@ -36,6 +37,7 @@ CHUNK = 0.01              # DES seconds one env.run covers at most
 DRAIN_WALL_S = 120.0      # the drain after the window: wall seconds at most
 SETUP_WALL_S = 900.0      # set-up that has not opened the window by then fails
 K1_KERNEL = "decode_attention_kernel"
+PROGRAM = "repro_torch."   # the package a program config may come from
 DES_SEED = 0
 
 
@@ -141,10 +143,22 @@ class Driver:
 
 
 def build_program_cfg(ref, spec):
-    """The program's ``ArchConfig`` of a configuration file."""
-    from repro_torch.configs.base import ArchConfig
+    """The program's config of a configuration file: the fields
+    ``ref.arch_kwargs(spec)`` gives, passed to ``ArchConfig``, or, where
+    they hold ``program_config`` (``"repro_torch.<module>:<name>"``), to
+    the program's callable it names, for a model ``ArchConfig`` cannot
+    describe."""
+    kw = dict(ref.arch_kwargs(spec))
+    target = kw.pop("program_config", None)
+    if target is None:
+        from repro_torch.configs.base import ArchConfig
 
-    return ArchConfig(**ref.arch_kwargs(spec))
+        return ArchConfig(**kw)
+    module, _, name = target.partition(":")
+    if not module.startswith(PROGRAM) or not name:
+        raise ValueError(f"program_config {target!r} does not name a "
+                         f"callable of the program ({PROGRAM}<module>:<name>)")
+    return getattr(importlib.import_module(module), name)(**kw)
 
 
 def run_cell(spec: dict, mix: dict, ref, seed: int, seconds: float,

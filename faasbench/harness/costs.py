@@ -4,7 +4,8 @@ roofline and utilisation metrics.
 The peaks are NVIDIA's data sheet for one H100 SXM (dense rates, 700 W).
 ``bound`` and ``decode_cost`` are frozen copies of
 ``benchmarks/torch_kernel_bench.py`` (as of the benchmark's first
-version); ``bound`` takes the peaks from this table instead of
+version), ``wkv6_decode_cost`` one as of the kernel's first version;
+``bound`` takes the peaks from this table instead of
 ``repro_torch.launch.roofline``.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 ITEM = {"bfloat16": 2, "float16": 2, "float32": 4}
+FAMILIES = ("dense", "ssm")     # the families ``token_flops`` counts
 
 
 def bound(nbytes, flops, dtype) -> dict:
@@ -32,6 +34,20 @@ def decode_cost(B, Smax, Hq, Hkv, D, lens, item):
     live = sum(min(max(int(n), 0), Smax) for n in lens)
     return ((2 * live * Hkv * D + 2 * B * Hq * D) * item + 4 * B,
             4.0 * live * Hq * D)
+
+
+def wkv6_decode_cost(B, H, dk, dv, item, live=None):
+    """The WKV6 decode step's bytes (r, k, v in, w, u, the state of the
+    ``live`` rows read, every row's state written, y, the lengths) and its
+    fp32 operations (the readout r S, the update w S + k v, the bonus);
+    ``live`` (default: every row) is the rows whose length is not 0.
+    Copied from benchmarks/torch_kernel_bench.py."""
+    live = B if live is None else live
+    nbytes = (B * H * (2 * dk + dv) * item          # r, k, v
+              + B * H * dk * 4 + H * dk * 4         # w, u
+              + (live + B) * H * dk * dv * 4        # state read, written
+              + B * H * dv * 4 + B * 4)             # y, lengths
+    return nbytes, float(B * H * (5 * dk * dv + 3 * dk + 2 * dv))
 
 
 def token_flops(spec: dict, family: str, positions: int) -> float:

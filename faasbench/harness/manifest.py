@@ -3,9 +3,24 @@
 A cell names a configuration (``configs``: its ``file``) and a traffic mix
 (``traffic/<traffic>.json``); a configuration names its plain reference
 (``reference/<reference>.py``, by the key ``reference`` in its file); a
-metric, end to end or per layer, is read by ``metrics/<name>.py``. A new
-cell, configuration, mix or metric is new files and new entries here,
-never an edit of a file that exists.
+metric, end to end or per layer, is read by ``metrics/<name>.py``, whose
+``read(rec)`` takes a run's ``cell.Record`` and returns a number or None.
+A new cell, configuration, mix or metric is new files and new entries
+here, never an edit of a file that exists.
+
+A reference module (the contract ``reference/__init__.py`` states in
+full) gives the harness:
+
+* ``FAMILY``: the model family, ``Record.family``;
+* ``arch_kwargs(spec)``: the program's config fields, given to the
+  program's ``ArchConfig``, or, where the dict holds ``program_config``
+  (``"repro_torch.<module>:<name>"``), to that callable of the program
+  (``cell.build_program_cfg``);
+* optionally ``token_flops(spec, positions)``: the operations of one
+  decoded token (``readers.decode_mfu``; without it only the ``dense`` and
+  ``ssm`` families have a count);
+* ``draw_weights``, ``logits``, ``forward`` and ``decode``: the check's
+  float32 arithmetic (``check.served_gap``).
 """
 from __future__ import annotations
 

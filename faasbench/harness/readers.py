@@ -4,10 +4,11 @@ that finds nothing to read returns None, and the metric is then left out
 of the result line."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 from harness import costs
 from harness.cell import hook_seconds
+from harness.manifest import Manifest
 
 
 def setup_s(rec) -> float:
@@ -38,14 +39,27 @@ def step_ms(rec) -> Optional[float]:
     return 1e3 * sum(r[1] for r in steps) / len(steps)
 
 
+def _token_flops(rec) -> Optional[Callable[[int], float]]:
+    """The operations of one decoded token at ``positions``: the
+    configuration's reference module's ``token_flops`` where it defines
+    one, else the frozen count of the ``dense`` and ``ssm`` families; None
+    for any other."""
+    ref = Manifest.reference(rec.spec)
+    if hasattr(ref, "token_flops"):
+        return lambda n: ref.token_flops(rec.spec, n)
+    if rec.family in costs.FAMILIES:
+        return lambda n: costs.token_flops(rec.spec, rec.family, n)
+    return None
+
+
 def decode_mfu(rec) -> Optional[float]:
     """The model operations of every active slot's token, over the steps'
     wall times the card's peak, in per cent, over the window's steps."""
     steps = rec.steps_in_window()
-    if not steps:
+    count = _token_flops(rec)
+    if not steps or count is None:
         return None
-    flops = sum(costs.token_flops(rec.spec, rec.family, n)
-                for r in steps for n in r[4])
+    flops = sum(count(n) for r in steps for n in r[4])
     wall = sum(r[1] for r in steps)
     peak = costs.PEAK_FLOPS[rec.spec["torch_dtype"]]
     return 100.0 * flops / (wall * peak)
@@ -71,6 +85,14 @@ def decode_attention_roofline(rec) -> Optional[float]:
         least_ms += n_l * costs.bound(nbytes, flops,
                                       s["torch_dtype"])["bound_ms"]
     return 100.0 * least_ms / (1e3 * t["kernel_s"])
+
+
+def kernel_time(rec, part: str) -> Tuple[float, int]:
+    """Device seconds and launches in the traced slice, summed over the
+    operations whose name holds ``part``; (0.0, 0) without a trace."""
+    kernels = (rec.trace or {}).get("kernels", {})
+    got = [v for name, v in kernels.items() if part in name]
+    return sum(s for s, _ in got), sum(n for _, n in got)
 
 
 def device_idle_share(rec) -> Optional[float]:

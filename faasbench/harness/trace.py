@@ -1,7 +1,7 @@
 """The traced slice of a run: ``torch.profiler`` over the window's first
 seconds (started before the window opens: its start takes seconds),
 reduced to the device's busy time, its operations by time, its idle gaps
-by what the host was doing, and one kernel's device time.
+by what the host was doing, and every kernel's device time and launches.
 
 Busy time is the union of the device intervals the profiler records
 (kernels, copies, sets), clipped to the traced slice; an idle gap is a
@@ -45,9 +45,10 @@ class Trace:
         self.prof.stop()
 
     def reduce(self, kernel: Optional[str] = None) -> dict:
-        """``busy_s``, ``window_s``, the top operations and idle gaps, and
-        the summed device seconds and launches of kernels whose name holds
-        ``kernel``."""
+        """``busy_s``, ``window_s``, the top operations and idle gaps, the
+        summed device seconds and launches of kernels whose name holds
+        ``kernel``, and ``kernels``: every device operation's full name
+        with its summed seconds and its launches."""
         cuda = torch.autograd.DeviceType.CUDA
         dev, host = [], []
         for ev in self.prof.events():
@@ -61,7 +62,8 @@ class Trace:
                 host.append((tr.start, tr.end, ev.name))
         window_s = self.t1 - self.t0
         out = {"window_s": window_s, "busy_s": 0.0, "device_ops": [],
-               "idle_gaps": [], "kernel_s": None, "kernel_launches": 0}
+               "idle_gaps": [], "kernel_s": None, "kernel_launches": 0,
+               "kernels": {}}
         if not dev:
             return out
         dev.sort()
@@ -81,9 +83,11 @@ class Trace:
         if hi > cur_e:
             gaps.append((cur_e, hi))
         by_op: Dict[str, float] = defaultdict(float)
+        launches: Dict[str, int] = defaultdict(int)
         k_s, k_n = 0.0, 0
         for s, e, name in dev:
             by_op[name] += (e - s) * 1e-6
+            launches[name] += 1
             if kernel and kernel in name:
                 k_s += (e - s) * 1e-6
                 k_n += 1
@@ -105,5 +109,6 @@ class Trace:
             device_ops=[[n[:120], s] for n, s in top],
             idle_gaps=sorted(([n, s] for n, s in by_gap.items()),
                              key=lambda r: -r[1])[:10],
-            kernel_s=k_s if k_n else None, kernel_launches=k_n)
+            kernel_s=k_s if k_n else None, kernel_launches=k_n,
+            kernels={n: (s, launches[n]) for n, s in by_op.items()})
         return out

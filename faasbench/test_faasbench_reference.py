@@ -1,11 +1,13 @@
 """The plain references: each full forward equals its own token-by-token
 recurrence, the weights they draw are the program's, their arithmetic is
 the program's plain path at float32, and they import nothing of the
-program, of JAX or of the JAX package."""
+program, of JAX or of the JAX package; the program's config built from a
+reference's fields, by ``ArchConfig`` or by the callable they name."""
 import ast
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -102,3 +104,69 @@ def test_references_import_nothing_of_the_program():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
+
+
+class _Stub:
+    """A program config that ``ArchConfig`` is not."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+
+def _bridge(target, **kw):
+    return SimpleNamespace(FAMILY="mla", arch_kwargs=lambda spec: dict(
+        kw, program_config=target))
+
+
+def test_program_config_default_and_named():
+    """Naming ``ArchConfig`` gives what the default path gives; a stub put
+    into a module of the program gets its own object back, built from the
+    other fields."""
+    import repro_torch.configs.base as base
+
+    for name in sorted(TINY):
+        spec, ref = _tiny(name)
+        got = build_program_cfg(_bridge("repro_torch.configs.base:ArchConfig",
+                                        **ref.arch_kwargs(spec)), spec)
+        assert isinstance(got, base.ArchConfig)
+        assert got == build_program_cfg(ref, spec)
+
+
+def test_program_config_reaches_the_live_spec(monkeypatch):
+    """The object the named callable returns is the one the run's
+    ``LiveFunctionSpec`` is given."""
+    import repro_torch.live as live
+    import repro_torch.models.api as api
+    from harness.cell import run_cell
+
+    made, seen = [], []
+
+    def latent(**kw):
+        made.append(_Stub(**kw))
+        return made[-1]
+
+    class Reached(Exception):
+        pass
+
+    def spec(cfg, **kw):
+        seen.append(cfg)
+        raise Reached
+
+    monkeypatch.setattr(api, "LatentConfig", latent, raising=False)
+    monkeypatch.setattr(live, "LiveFunctionSpec", spec)
+    ref = _bridge("repro_torch.models.api:LatentConfig", n_layers=3)
+    assert build_program_cfg(ref, {}) is made[0]
+    assert made[0].kw == {"n_layers": 3}
+    with pytest.raises(Reached):
+        run_cell({}, MAN.traffic("closed"), ref, 1, 1.0, False, 0.0,
+                 device="cpu")
+    assert len(made) == 2 and len(seen) == 1 and seen[0] is made[1]
+
+
+@pytest.mark.parametrize("target", [
+    "repro.configs.base:ArchConfig", "torch.nn:Linear",
+    "repro_torchx.configs:ArchConfig", "repro_torch.configs.base",
+    "repro_torch.configs.base:"])
+def test_program_config_outside_the_program_raises(target):
+    with pytest.raises(ValueError, match="program_config"):
+        build_program_cfg(_bridge(target, n_layers=1), {})
