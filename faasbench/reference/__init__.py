@@ -26,6 +26,43 @@ It names the program's pieces by string alone. It defines:
   the control; ``"bf16"``: a witness).
 * ``forward(spec, w, tokens, precision="fp32")`` and
   ``decode(spec, w, tokens)``: the full forward and the same logits
-  computed token by token, ``tokens`` in the module's own layout; the
-  tests hold the two equal.
+  computed token by token, ``tokens`` in the layout ``BATCHED`` states;
+  the tests hold the two equal. A ``forward`` that also takes
+  ``parallel`` (default False) has a second, closed form of its
+  recurrence, which the tests hold equal too.
+* ``BATCHED``: True where ``forward`` and ``decode`` take ``tokens`` as
+  (B, S) and return (B, S, V); False where they take one sequence (S,)
+  and return (S, V).
+* ``TINY``: the configuration fields that shrink this family to the CPU
+  tests' size, laid over the configuration file by every CPU test that
+  runs a configuration or a cell (``dict(spec, **TINY)``). They keep the
+  family's shape rules: the heads divide the width, any state or head
+  size divides it, and ``torch_dtype`` is ``"float32"``.
+
+Adding a configuration takes new files and new entries of
+``BENCHMARK.json`` only; no file that is there changes:
+
+1. ``configs/<name>.json``: the model's fields as its source publishes
+   them, with ``source``, ``reference`` (the module below), ``assumed``
+   (each size set here, not by the source) and ``limits`` (each number
+   ``harness/check.py`` compares, with its limit). A cut names each
+   changed key in the entry's ``reduced``, gives its published value in
+   ``published`` and states ``deployment.chips_per_layer``.
+2. ``reference/<module>.py``, where no module here computes the family:
+   ``FAMILY``, ``arch_kwargs``, ``BATCHED``, ``TINY``, ``draw_weights``,
+   ``logits``, ``forward``, ``decode`` and, optionally, ``token_flops``,
+   as above.
+3. ``traffic/<mix>.json``, where no mix here fits.
+4. In ``BENCHMARK.json``: the configuration under ``configs``, the cell
+   under ``workloads``, and the cell's name appended to the
+   ``workloads`` of ``tokens_per_s`` and of every per-layer metric it
+   reports, ``create_warm_s`` and ``create_capture_s`` among them (the
+   card test ``test_traced_run_reports_the_program_spans`` expects both
+   of every cell).
+5. ``metrics/<kernel>_roofline.py`` for each kernel the model brings,
+   with its entry under ``per_layer``.
+
+The CPU tests then find the configuration, its cell, its tiny size and
+the model class its run builds from these files, and run the cell at its
+``TINY`` size, sound and with each fault planted.
 """

@@ -35,6 +35,9 @@ FAMILY = "ssm"
 LORA_R = 64
 LOGW_MIN, LOGW_MAX = -0.5, -1e-4
 LN_EPS = 1e-5
+BATCHED = True
+TINY = dict(num_hidden_layers=2, hidden_size=64, head_size=16,
+            intermediate_size=128, vocab_size=256, torch_dtype="float32")
 
 
 def arch_kwargs(spec: dict) -> dict:

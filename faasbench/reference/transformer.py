@@ -30,6 +30,10 @@ import torch
 import torch.nn.functional as F
 
 FAMILY = "dense"
+BATCHED = False
+TINY = dict(num_hidden_layers=2, hidden_size=96, num_attention_heads=6,
+            num_key_value_heads=2, head_dim=16, intermediate_size=128,
+            vocab_size=256, torch_dtype="float32")
 
 
 def arch_kwargs(spec: dict) -> dict:

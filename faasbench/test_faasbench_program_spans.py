@@ -16,7 +16,7 @@ from harness.measure import measure
 from harness.trace import SPAN_PREFIXES
 from test_faasbench_faults import SEED, SMALL
 from test_faasbench_manifest import ROOT
-from test_faasbench_reference import TINY
+from test_faasbench_reference import tiny_patch
 
 MAN = Manifest(ROOT)
 CELLS = [w["name"] for w in MAN.bench["workloads"]]
@@ -88,7 +88,7 @@ def test_no_tracer_in_the_program_reads_nothing(monkeypatch):
 def _tiny_run(cell, trace):
     torch.set_num_threads(2)
     return measure(MAN, cell, SEED, 1.0, trace, time.perf_counter(),
-                   device="cpu", spec_patch=TINY[MAN.cell(cell)["config"]],
+                   device="cpu", spec_patch=tiny_patch(MAN, cell),
                    mix_patch=SMALL)
 
 

@@ -4,6 +4,7 @@ the program's plain path at float32, and they import nothing of the
 program, of JAX or of the JAX package; the program's config built from a
 reference's fields, by ``ArchConfig`` or by the callable they name."""
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -17,39 +18,37 @@ from harness.manifest import Manifest
 from test_faasbench_manifest import ROOT
 
 MAN = Manifest(ROOT)
-TINY = {
-    "smollm-360m": dict(num_hidden_layers=2, hidden_size=96,
-                        num_attention_heads=6, num_key_value_heads=2,
-                        head_dim=16, intermediate_size=128, vocab_size=256,
-                        torch_dtype="float32"),
-    "rwkv6-7b": dict(num_hidden_layers=2, hidden_size=64, head_size=16,
-                     intermediate_size=128, vocab_size=256,
-                     torch_dtype="float32"),
-}
+CONFIGS = [c["name"] for c in MAN.bench["configs"]]
+
+
+def tiny_patch(man, cell):
+    """The fields that shrink cell ``cell`` of manifest ``man`` to the CPU
+    tests' size: its configuration's reference's ``TINY``."""
+    return man.reference(man.config(man.cell(cell)["config"])).TINY
 
 
 def _tiny(name):
-    spec = dict(MAN.config(name), **TINY[name])
-    return spec, MAN.reference(spec)
+    spec = MAN.config(name)
+    ref = MAN.reference(spec)
+    return dict(spec, **ref.TINY), ref
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_forward_equals_recurrence(name):
     spec, ref = _tiny(name)
     w = ref.draw_weights(spec, 5, "cpu")
-    toks = torch.randint(0, 256, (1, 24), generator=torch.Generator()
-                         .manual_seed(1))
-    if name == "smollm-360m":
-        full, step = ref.forward(spec, w, toks[0]), ref.decode(spec, w,
-                                                                toks[0])
-    else:
-        full, step = ref.forward(spec, w, toks), ref.decode(spec, w, toks)
+    toks = torch.randint(0, spec["vocab_size"], (1, 24),
+                         generator=torch.Generator().manual_seed(1))
+    if not ref.BATCHED:
+        toks = toks[0]
+    full, step = ref.forward(spec, w, toks), ref.decode(spec, w, toks)
+    if "parallel" in inspect.signature(ref.forward).parameters:
         par = ref.forward(spec, w, toks, parallel=True)
         torch.testing.assert_close(par, full, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(step, full, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_weights_and_arithmetic_are_the_programs(name):
     """The frozen drawing rule gives the program's parameters bit for bit,
     and the reference's logits are the program's plain forward's (float32,
@@ -64,8 +63,8 @@ def test_weights_and_arithmetic_are_the_programs(name):
     w = ref.draw_weights(spec, 9, "cpu")
     for k, v in w.items():
         assert torch.equal(sd[k if k in sd else f"layers.{k}"], v), k
-    toks = torch.randint(0, 256, (1, 64), generator=torch.Generator()
-                         .manual_seed(2))
+    toks = torch.randint(0, spec["vocab_size"], (1, 64),
+                         generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         got = model.forward({"tokens": toks})[0]
     want = ref.logits(spec, w, [toks[0]])[0]
@@ -97,8 +96,10 @@ def test_references_import_nothing_of_the_program():
             tops = {m.split(".")[0] for m in _imports(os.path.join(ref_dir,
                                                                    f))}
             assert tops <= {"__future__", "math", "typing", "torch"}, (f, tops)
-    code = ("import sys; sys.path.insert(0, 'faasbench'); "
-            "import reference.transformer, reference.rwkv6; "
+    mods = sorted(f[:-3] for f in os.listdir(ref_dir)
+                  if f.endswith(".py") and f != "__init__.py")
+    code = ("import importlib, sys; sys.path.insert(0, 'faasbench'); "
+            f"[importlib.import_module('reference.' + m) for m in {mods!r}]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'repro', 'repro_torch', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -124,10 +125,13 @@ def test_program_config_default_and_named():
     other fields."""
     import repro_torch.configs.base as base
 
-    for name in sorted(TINY):
+    for name in CONFIGS:
         spec, ref = _tiny(name)
+        kw = ref.arch_kwargs(spec)
+        if "program_config" in kw:
+            continue
         got = build_program_cfg(_bridge("repro_torch.configs.base:ArchConfig",
-                                        **ref.arch_kwargs(spec)), spec)
+                                        **kw), spec)
         assert isinstance(got, base.ArchConfig)
         assert got == build_program_cfg(ref, spec)
 
