@@ -11,7 +11,8 @@ matmuls against S sequential steps). Their inputs are drawn from a numpy
 seed; on the CPU they are timed on the host's clock, on CUDA with events
 after a synchronise. With ``--full`` (``quick=False``) on CUDA a row is
 added for each kernel of ``repro_torch.kernels.ops`` at its main path's
-shape (PERF.md §6): its device µs (its calls replayed from a CUDA graph
+shape (PERF.md §6; the decode step's three fused passes at smollm-360m's
+step): its device µs (its calls replayed from a CUDA graph
 between two events), its plain version's, the library call's (SDPA for
 the attention kernels, ``torch._grouped_mm`` for the grouped GEMM and,
 with the epilogue, the fused gate/up pass; none computes WKV6 or the SSD
@@ -197,6 +198,12 @@ MAIN = {
 }
 MAIN["grouped_swiglu"] = dict(MAIN["grouped_matmul"], fused=True)
 MAIN["wkv6_decode"] = dict(B=64, H=64, dk=64, dv=64, dtype=torch.bfloat16)
+# the fused passes of DecoderLM's decode step at smollm-360m's captured step
+# (64 slots: d 960, 15 / 5 heads of 64 over a 1024-long cache, d_ff 2560)
+MAIN["add_rms_norm"] = dict(B=64, d=960, dtype=torch.bfloat16)
+MAIN["rope_kv_write"] = dict(B=64, Smax=1024, Hq=15, Hkv=5, D=64,
+                             dtype=torch.bfloat16)
+MAIN["silu_mul"] = dict(B=64, d_ff=2560, dtype=torch.bfloat16)
 
 
 def time_ms(fn, n_inner: int = 1, reps: int = 20, warmup: int = 3) -> float:
@@ -297,6 +304,29 @@ def wkv6_decode_cost(B, H, dk, dv, item, live=None):
     return nbytes, float(B * H * (5 * dk * dv + 3 * dk + 2 * dv))
 
 
+def add_rms_norm_cost(B, d, item, delta=True):
+    """The residual add and norm's bytes (x and delta read, the residual
+    and the norm's output written, the weight) and operations (the add,
+    the sum of squares, two products a value)."""
+    n = B * d
+    return (4 if delta else 2) * n * item + d * 4, float(n * (4 if delta
+                                                              else 3))
+
+
+def rope_kv_write_cost(B, Hq, Hkv, D, item):
+    """The rotation and cache write's bytes (q read and written, k and v
+    read and written into the cache, the tables, the positions) and
+    operations (four products and two sums a pair)."""
+    return ((2 * B * Hq * D + 4 * B * Hkv * D) * item + B * D * 4 + B * 8,
+            3.0 * B * (Hq + Hkv) * D)
+
+
+def silu_mul_cost(B, d_ff, item):
+    """silu(g) * u's bytes (g and u read, the product written) and
+    operations (negation, exp, add, divide, product a value)."""
+    return 3 * B * d_ff * item, 5.0 * B * d_ff
+
+
 def ssd_cost(b, S, H, P, N, chunk, item, broadcast):
     """K4's bytes, operations, and the products among them."""
     n_chunks = S // chunk
@@ -374,6 +404,49 @@ def wkv6_decode_inputs(B, H, dk, dv, dtype, n_layers, seed):
                          device="cuda") * 0.1
     lens = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
     return r, k, v, w, u, states, lens
+
+
+def norm_inputs(B, d, dtype, seed):
+    """x and delta (B, 1, d) of standard deviation 2, the weight 1 + N(0,
+    0.3) in fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, delta = (torch.randn((B, 1, d), generator=g, device="cuda").mul_(
+        2.0).to(dtype) for _ in range(2))
+    w = torch.randn((d,), generator=g, device="cuda").mul_(0.3).add_(1.0)
+    return x, delta, w
+
+
+def rope_inputs(B, Smax, Hq, Hkv, D, dtype, seed, lens=None, mrope=None):
+    """q (B,1,Hq,D), k and v (B,1,Hkv,D), the layer's caches (B,Smax,Hkv,D),
+    the write positions (default: spread over the cache, a row at 0 and
+    one at its end) as int64 and their rotary tables (M-RoPE's with
+    ``mrope`` sections)."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = n(B, 1, Hq, D), n(B, 1, Hkv, D), n(B, 1, Hkv, D)
+    ck, cv = n(B, Smax, Hkv, D), n(B, Smax, Hkv, D)
+    if lens is None:
+        lens = [i * (Smax - 1) // max(B - 1, 1) for i in range(B)]
+    pos = torch.tensor(lens, dtype=torch.int64, device="cuda")
+    if mrope is None:
+        cos, sin = L.rope_tables(pos[:, None], D)
+    else:
+        p = pos[:, None]
+        cos, sin = L.mrope_tables(torch.stack([p, p, p], -1), D, mrope)
+    return q, k, v, cos, sin, ck, cv, pos
+
+
+def silu_inputs(B, d_ff, dtype, seed):
+    """g (B, 1, d_ff) of standard deviation 3 and u of 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gate = torch.randn((B, 1, d_ff), generator=g, device="cuda").mul_(3.0)
+    up = torch.randn((B, 1, d_ff), generator=g, device="cuda")
+    return gate.to(dtype), up.to(dtype)
 
 
 def ssd_card_inputs(b, S, H, P, N, dtype, broadcast, seed, init_scale=False):
@@ -637,6 +710,47 @@ def bench_grouped(name):
     return rec
 
 
+def bench_fused(name):
+    """One of the decode step's fused passes at smollm-360m's step (64
+    slots), 32 calls a timed graph (one a layer; the norm runs 65 a step);
+    its plain form is the composition it replaces."""
+    from repro_torch.kernels import ops
+
+    s, L = MAIN[name], DECODE_LAYERS
+    if name == "add_rms_norm":
+        x, delta, w = norm_inputs(s["B"], s["d"], s["dtype"], SEED + 21)
+
+        def call(impl):
+            return ops.add_rms_norm(x, delta, w, impl=impl)[1]
+
+        cost = add_rms_norm_cost(s["B"], s["d"], x.element_size())
+    elif name == "rope_kv_write":
+        q, k, v, cos, sin, ck, cv, pos = rope_inputs(
+            **{n: s[n] for n in ("B", "Smax", "Hq", "Hkv", "D", "dtype")},
+            seed=SEED + 22)
+
+        def call(impl):
+            return ops.rope_kv_write(q, k, v, cos, sin, ck, cv, pos,
+                                     impl=impl)
+
+        cost = rope_kv_write_cost(s["B"], s["Hq"], s["Hkv"], s["D"],
+                                  q.element_size())
+    else:
+        gate, up = silu_inputs(s["B"], s["d_ff"], s["dtype"], SEED + 23)
+
+        def call(impl):
+            return ops.silu_mul(gate, up, impl=impl)
+
+        cost = silu_mul_cost(s["B"], s["d_ff"], gate.element_size())
+    rec = {"max_abs_err": _err(call("kernel"), call("plain")),
+           **_timed(_calls(lambda: call("kernel"), L),
+                    _calls(lambda: call("plain"), L), None, L),
+           "library": "none: no one PyTorch call computes the pass",
+           **bound(*cost, s["dtype"])}
+    rec.update(layers=L)
+    return rec
+
+
 CUDA_ROWS = (("decode_attention", "K1", bench_decode),
              ("flash_attention", "K2", bench_flash),
              ("wkv6", "K3", bench_wkv6),
@@ -644,7 +758,10 @@ CUDA_ROWS = (("decode_attention", "K1", bench_decode),
              ("grouped_matmul", "B5", lambda: bench_grouped("grouped_matmul")),
              ("grouped_swiglu", "B5f",
               lambda: bench_grouped("grouped_swiglu")),
-             ("wkv6_decode", "K3d", bench_wkv6_decode))
+             ("wkv6_decode", "K3d", bench_wkv6_decode),
+             ("add_rms_norm", "F1", lambda: bench_fused("add_rms_norm")),
+             ("rope_kv_write", "F2", lambda: bench_fused("rope_kv_write")),
+             ("silu_mul", "F3", lambda: bench_fused("silu_mul")))
 
 
 def cuda_kernels(reporter, device) -> list:

@@ -228,11 +228,13 @@ import torch  # noqa: E402
 
 # the kernels' main cases and their timing, shared with the kernel bench
 from benchmarks.torch_kernel_bench import (  # noqa: E402
-    DECODE_LAYERS, FLASH_CALLS, MAIN, RAGGED, SEED, bound, decode_cost,
-    decode_inputs, device_ms, flash_cost, flash_inputs, grouped_cost,
-    grouped_inputs, grouped_library, moe_group_sizes, sdpa_decode,
-    sdpa_prefill, ssd_card_inputs, ssd_cost, swiglu_library, time_ms,
-    wkv6_card_inputs, wkv6_cost, wkv6_decode_cost, wkv6_decode_inputs)
+    DECODE_LAYERS, FLASH_CALLS, MAIN, RAGGED, SEED, add_rms_norm_cost, bound,
+    decode_cost, decode_inputs, device_ms, flash_cost, flash_inputs,
+    grouped_cost, grouped_inputs, grouped_library, moe_group_sizes,
+    norm_inputs, rope_inputs, rope_kv_write_cost, sdpa_decode, sdpa_prefill,
+    silu_inputs, silu_mul_cost, ssd_card_inputs, ssd_cost, swiglu_library,
+    time_ms, wkv6_card_inputs, wkv6_cost, wkv6_decode_cost,
+    wkv6_decode_inputs)
 from repro_torch.launch import roofline  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): the
@@ -726,6 +728,133 @@ def check_wkv6_decode_graph(name, B, H, dk, dv, dtype):
     rec = {"case": name, "kernel": "wkv6_decode", "dtype": dt_name(dtype),
            "y_and_state_eager_vs_graph_bit_equal": equal}
     require(all(equal), f"{name}: eager and replay differ: {equal}")
+    return rec
+
+
+# -- the decode step's fused passes ----------------------------------------------
+#
+# Each kernel against its plain form (the composition it replaces) on the
+# same inputs: what both round alike must be bit-equal (the norm's residual
+# add; the rotation, whose fp32 products and sums the kernel rounds one by
+# one as PyTorch's separate kernels do; the cache rows no row writes), the
+# rest within allclose(atol = rtol = KERNEL_TOL): the norm's sum of squares
+# runs in another order, and silu's exp is the device's expf on both sides
+# but may differ in its last bit from PyTorch's.
+
+def _timed_fused(rec, kernel, plain, cost, dtype, calls=DECODE_LAYERS):
+    """``calls`` calls a timed graph, one a layer of a step."""
+    rec.update(bound(*cost, dtype))
+    rec.update(layers=calls,
+               ms=device_ms(lambda: [kernel() for _ in range(calls)], calls),
+               plain_ms=device_ms(lambda: [plain() for _ in range(calls)],
+                                  calls, reps=5),
+               eager_ms=time_ms(lambda: [kernel() for _ in range(calls)],
+                                calls),
+               library_ms=None,
+               library_note="no one PyTorch call computes the pass")
+    rec["ms_again"] = device_ms(lambda: [kernel() for _ in range(calls)],
+                                calls)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def check_add_rms_norm(name, B, d, dtype, delta=True, timed=False):
+    """The residual add and RMSNorm against ``x + delta`` then
+    ``layers.rms_norm``: the residual bit-equal, the norm's output within
+    allclose(KERNEL_TOL); without ``delta`` (a first layer) the kernel hands
+    x back."""
+    from repro_torch.kernels import ops
+
+    x, dl, w = norm_inputs(B, d, dtype, SEED + 21)
+    dl = dl if delta else None
+    got_x, got_h = ops.add_rms_norm(x, dl, w)
+    want_x, want_h = ops.add_rms_norm(x, dl, w, impl="plain")
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
+    rec = {"case": name, "kernel": "add_rms_norm",
+           "shape": {"B": B, "d": d, "delta": delta}, "dtype": dt_name(dtype),
+           "residual_bit_equal": bool(torch.equal(got_x, want_x)),
+           "x_handed_back": got_x is x,
+           "max_abs_err": max_abs_err(got_h, want_h),
+           "bit_equal": bool(torch.equal(got_h, want_h)),
+           "allclose_excess": allclose_excess(got_h, want_h, tol), "tol": tol}
+    require(bool(torch.isfinite(got_h.float()).all()), f"{name}: not finite")
+    require(rec["residual_bit_equal"] and (delta or rec["x_handed_back"]),
+            f"{name}: the residual differs from x + delta: {rec}")
+    require(rec["allclose_excess"] <= tol,
+            f"{name}: outside allclose(atol=rtol={tol}): {rec}")
+    if timed:
+        _timed_fused(rec, lambda: ops.add_rms_norm(x, dl, w),
+                     lambda: ops.add_rms_norm(x, dl, w, impl="plain"),
+                     add_rms_norm_cost(B, d, x.element_size(), delta), dtype)
+    return rec
+
+
+def check_rope_kv_write(name, B, Smax, Hq, Hkv, D, dtype, lens=None,
+                        mrope=None, timed=False):
+    """The rotation and KV write against ``layers.rotate`` then
+    ``index_put_`` on a copy of the caches: the rotated q and both caches
+    bit-equal (every position but each row's own untouched), else within
+    allclose(KERNEL_TOL). ``lens`` may hold 0s and any stale length."""
+    from repro_torch.kernels import ops
+
+    q, k, v, cos, sin, ck, cv, pos = rope_inputs(B, Smax, Hq, Hkv, D, dtype,
+                                                 SEED + 22, lens, mrope)
+    pk, pv = ck.clone(), cv.clone()
+    before = ck.clone()
+    got = ops.rope_kv_write(q, k, v, cos, sin, ck, cv, pos)
+    want = ops.rope_kv_write(q, k, v, cos, sin, pk, pv, pos, impl="plain")
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
+    own = torch.zeros((B, Smax), dtype=torch.bool, device="cuda")
+    own[torch.arange(B, device="cuda"), pos] = True
+    moved = (ck != before).any(-1).any(-1)
+    rec = {"case": name, "kernel": "rope_kv_write",
+           "shape": {"B": B, "Smax": Smax, "Hq": Hq, "Hkv": Hkv, "D": D,
+                     "mrope": mrope},
+           "dtype": dt_name(dtype), "rows_at_length_0": int((pos == 0).sum()),
+           "max_abs_err": max(max_abs_err(got, want), max_abs_err(ck, pk),
+                              max_abs_err(cv, pv)),
+           "bit_equal": [bool(torch.equal(got, want)),
+                         bool(torch.equal(ck, pk)), bool(torch.equal(cv, pv))],
+           "allclose_excess": max(allclose_excess(got, want, tol),
+                                  allclose_excess(ck, pk, tol),
+                                  allclose_excess(cv, pv, tol)),
+           "only_own_rows_written": not bool((moved & ~own).any()),
+           "tol": tol}
+    require(rec["allclose_excess"] <= tol,
+            f"{name}: outside allclose(atol=rtol={tol}): {rec}")
+    require(rec["only_own_rows_written"],
+            f"{name}: the kernel wrote outside its rows' positions: {rec}")
+    if timed:
+        _timed_fused(rec, lambda: ops.rope_kv_write(q, k, v, cos, sin, ck, cv,
+                                                    pos),
+                     lambda: ops.rope_kv_write(q, k, v, cos, sin, pk, pv, pos,
+                                               impl="plain"),
+                     rope_kv_write_cost(B, Hq, Hkv, D, q.element_size()),
+                     dtype)
+    return rec
+
+
+def check_silu_mul(name, B, d_ff, dtype, timed=False):
+    """silu(g) * u against ``F.silu(g) * u``, within allclose(KERNEL_TOL)."""
+    from repro_torch.kernels import ops
+
+    gate, up = silu_inputs(B, d_ff, dtype, SEED + 23)
+    got = ops.silu_mul(gate, up)
+    want = ops.silu_mul(gate, up, impl="plain")
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
+    rec = {"case": name, "kernel": "silu_mul",
+           "shape": {"B": B, "d_ff": d_ff}, "dtype": dt_name(dtype),
+           "max_abs_err": max_abs_err(got, want),
+           "bit_equal": bool(torch.equal(got, want)),
+           "allclose_excess": allclose_excess(got, want, tol), "tol": tol}
+    require(rec["allclose_excess"] <= tol,
+            f"{name}: outside allclose(atol=rtol={tol}): {rec}")
+    if timed:
+        _timed_fused(rec, lambda: ops.silu_mul(gate, up),
+                     lambda: ops.silu_mul(gate, up, impl="plain"),
+                     silu_mul_cost(B, d_ff, gate.element_size()), dtype)
     return rec
 
 
@@ -1271,6 +1400,31 @@ def phase_kernels() -> dict:
         check_wkv6_decode("wkv6-decode/d128/bf16", 64, 32, 128, 128, bf16),
         check_wkv6_decode_graph("wkv6-decode/graph-replay/bf16", 64, 64, 64,
                                 64, bf16),
+        # the decode step's fused passes at smollm-360m's captured step (64
+        # slots) in bf16 and fp32; the norm without a residual (a first
+        # layer) and at qwen2-vl-72b's 8192 (four vectors a thread); the
+        # rotation and KV write at a group of 7 and head dim 128 (arctic),
+        # M-RoPE's tables (qwen2-vl), with rows at length 0 and at the
+        # cache's end; silu(g) * u at arctic's dense width
+        check_add_rms_norm("norm/main/bf16", **MAIN["add_rms_norm"],
+                           timed=True),
+        check_add_rms_norm("norm/smollm/fp32", 64, 960, f32),
+        check_add_rms_norm("norm/first-layer/bf16", 64, 960, bf16,
+                           delta=False),
+        check_add_rms_norm("norm/d8192/bf16", 8, 8192, bf16),
+        check_add_rms_norm("norm/d8192/fp32", 8, 8192, f32),
+        check_rope_kv_write("rope/main/bf16", **MAIN["rope_kv_write"],
+                            timed=True),
+        check_rope_kv_write("rope/smollm/fp32", 64, 1024, 15, 5, 64, f32),
+        check_rope_kv_write("rope/g7-d128/bf16", 8, 300, 56, 8, 128, bf16,
+                            lens=[0, 0, 299, 17, 1, 250, 0, 3]),
+        check_rope_kv_write("rope/g7-d128/fp32", 8, 300, 56, 8, 128, f32,
+                            lens=[0, 5, 299, 17, 1, 250, 0, 3]),
+        check_rope_kv_write("rope/mrope-d128/bf16", 4, 64, 64, 8, 128, bf16,
+                            lens=[0, 63, 31, 7], mrope=(16, 24, 24)),
+        check_silu_mul("silu/main/bf16", **MAIN["silu_mul"], timed=True),
+        check_silu_mul("silu/smollm/fp32", 64, 2560, f32),
+        check_silu_mul("silu/d4864/bf16", 8, 4864, bf16),
         # K4 at zamba2-2.7b's forward (80 heads, P = N = 64, chunk 64, fp32
         # as the model passes them, B/C broadcast over heads) and the edges
         check_ssd("ssd/main/fp32", **MAIN["ssd"], state=False, timed=True),
@@ -1371,7 +1525,10 @@ def phase_kernels() -> dict:
             "ssd": by_case["ssd/main/fp32"],
             "grouped_matmul": by_case["grouped/arctic-decode-gate/bf16"],
             "grouped_swiglu": by_case["swiglu/arctic-decode/bf16"],
-            "wkv6_decode": by_case["wkv6-decode/main/bf16"]}
+            "wkv6_decode": by_case["wkv6-decode/main/bf16"],
+            "add_rms_norm": by_case["norm/main/bf16"],
+            "rope_kv_write": by_case["rope/main/bf16"],
+            "silu_mul": by_case["silu/main/bf16"]}
 
 
 # -- phase: model ---------------------------------------------------------------
@@ -1381,8 +1538,10 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
     """forward (on the kernels: flash attention, WKV6 or SSD) vs the same
     prompt fed token by token through decode_step (flash-decode where the
     model attends) vs the same weights on the plain versions; last-position
-    logits. The plain twin is built on 'meta' and takes the kernel model's
-    tensors themselves (``assign=True``): at arctic-480b's width two copies
+    logits. A DecoderLM decodes with a (1,) length, as a batcher's step
+    does, so its decode takes the fused route (``_use_fused_decode``: the
+    three fused passes, or their plain forms in the twin). The plain twin
+    is built on 'meta' and takes the kernel model's tensors themselves (``assign=True``): at arctic-480b's width two copies
     would not fit in the card's memory."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models.api import build_model
@@ -1412,20 +1571,24 @@ def prefill_vs_decode(cfg, run_kernel, run_plain, prompt_len, tol, label,
         fwd_plain = plain.forward({"tokens": toks})[:, -1].float()
         cache = model.init_cache(ShapeSpec("m", MAX_SEQ, 1, "decode"))
         cache_p = plain.init_cache(ShapeSpec("m", MAX_SEQ, 1, "decode"))
+        per_row = cfg.family in ("dense", "moe", "vlm")
+        lens = [torch.tensor([t], device="cuda") if per_row else t
+                for t in range(prompt_len)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(prompt_len):
             dec, cache = model.decode_step(
-                cache, {"tokens": toks[:, t:t + 1], "cache_len": t})
+                cache, {"tokens": toks[:, t:t + 1], "cache_len": lens[t]})
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
         for t in range(prompt_len):
             dec_plain, cache_p = plain.decode_step(
-                cache_p, {"tokens": toks[:, t:t + 1], "cache_len": t})
+                cache_p, {"tokens": toks[:, t:t + 1], "cache_len": lens[t]})
         dec, dec_plain = dec.float(), dec_plain.float()
     rec = {
         "leg": label, "n_layers": cfg.n_layers, "full_depth": full_depth,
         "dtype": cfg.dtype, "prompt_len": prompt_len, "tol": tol,
+        "decode_lengths": "per row" if per_row else "scalar",
         "logit_std": float(fwd_plain.std()),
         "forward_kernel_vs_decode_kernel": max_abs_err(fwd, dec),
         "forward_kernel_vs_forward_plain": max_abs_err(fwd, fwd_plain),
@@ -1562,6 +1725,103 @@ def captured_vs_eager(exe, tokens, lens) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def unfused_route():
+    """DecoderLM's decode step on the unfused route inside the block."""
+    from repro_torch.models.transformer import DecoderLM
+
+    real = DecoderLM._use_fused_decode
+    DecoderLM._use_fused_decode = lambda self, cache_len: False
+    try:
+        yield
+    finally:
+        DecoderLM._use_fused_decode = real
+
+
+def captured_graph(fn) -> dict:
+    """A CUDA graph that captures ``fn()`` once: its nodes
+    (``cuGraphGetNodes``) and the device ms of one replay; the
+    launches the wrappers counted during the capture are taken back (a
+    capture is not a run). None where this torch cannot keep a captured
+    graph (then not measured)."""
+    import ctypes
+
+    from repro_torch.kernels import ops
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return {"nodes": None, "replay_ms": None}
+    before = ops.launch_counts()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        ops.add_launches(ops.launch_delta(before), times=-1)
+    n = ctypes.c_size_t(0)
+    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    require(code == 0, f"cuGraphGetNodes returned {code}")
+    graph.instantiate()
+    out = {"nodes": n.value, "replay_ms": time_ms(graph.replay, reps=20)}
+    del graph
+    return out
+
+
+def fused_counts(cfg) -> dict:
+    """What a captured DecoderLM step on the fused route launches of K1
+    and the fused passes: a norm before each layer's attention and MLP and
+    the final one, one rotation and KV write a layer, silu(g) * u in a
+    dense SwiGLU MLP."""
+    n = cfg.n_layers
+    out = {"decode_attention": n, "add_rms_norm": 2 * n + 1,
+           "rope_kv_write": n}
+    if cfg.moe is None and cfg.mlp == "swiglu":
+        out["silu_mul"] = n
+    return out
+
+
+def fused_vs_unfused(exe, tokens, lens) -> dict:
+    """One captured step of ``exe`` (the fused route) against
+    ``decode_step`` on the unfused route, run eagerly on a copy of the same
+    cache with the same inputs: logits and caches within the model-level
+    tolerance of the dtype (the fused kernels round where the plain passes
+    round, but the norm sums in another order), and the argmax. Then one
+    decode step captured on each route: its graph's nodes and the device
+    ms of a replay."""
+    from repro_torch.models import layers as L
+
+    model = exe.model
+    tol = BF16_TOL if model.cfg.dtype == "bfloat16" else FP32_TOL
+    with torch.inference_mode():
+        copy = {k: v.clone() for k, v in exe.cache.items()}
+        got = exe(tokens, lens).clone()
+        inputs = {"tokens": exe.tokens.clone(),
+                  "cache_len": exe.cache_len.clone()}
+        with L.lengths_checked(), unfused_route():
+            want, copy = model.decode_step(copy, inputs)
+        torch.cuda.synchronize()
+        rec = {"logits_max_abs_err": max_abs_err(got, want),
+               "cache_max_abs_err": max(max_abs_err(copy[k], exe.cache[k])
+                                        for k in copy),
+               "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+               "tol": tol}
+
+        def step():
+            with L.lengths_checked():
+                model.decode_step(copy, inputs)
+
+        rec["graph"] = captured_graph(step)
+        with unfused_route():
+            rec["graph_unfused"] = captured_graph(step)
+        del copy
+    require(rec["logits_max_abs_err"] <= tol
+            and rec["cache_max_abs_err"] <= tol,
+            f"the fused and unfused steps differ beyond {tol}: {rec}")
+    return rec
+
+
 def moe_launches(exe, tokens, lens, reps: int = 5) -> Optional[list]:
     """Each grouped launch of one captured MoE step, in order: its device
     ms (the mean over ``reps`` replays of the same step under
@@ -1690,8 +1950,15 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
         require(exe.replay_counts == {"wkv6_decode": cfg.n_layers},
                 f"{cfg.name}: a replay launches {exe.replay_counts}, not "
                 f"wkv6_decode once a layer ({cfg.n_layers})")
+    else:
+        want = fused_counts(cfg)
+        require({k: exe.replay_counts.get(k) for k in want} == want,
+                f"{cfg.name}: a replay launches {exe.replay_counts}, not "
+                f"the fused route's {want}")
     check = captured_vs_eager(exe, tok, lens + 1)
     moe = moe_launches(exe, tok, lens + 2) if cfg.family == "moe" else None
+    fused = None if cfg.family == "ssm" \
+        else fused_vs_unfused(exe, tok, lens + 3)
     out = {"slots_busy": MAX_SLOTS, "steps": n_steps,
            "ms_per_step": step_ms, "ms_per_step_traced": traced_ms,
            "tokens_per_s": MAX_SLOTS / step_ms * 1e3,
@@ -1702,6 +1969,7 @@ def profile_decode_steps(cfg, cache, prompts, n_steps: int = 8) -> dict:
            "capture_s": exe.capture_s,
            "launches_per_replay": exe.replay_counts,
            "captured_vs_eager": check,
+           "fused_vs_unfused": fused,
            "moe_launches": moe,
            "device_busy_ms_per_step": None, "device_busy_share": None,
            "top_device_kernels": None}
@@ -4356,24 +4624,38 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     # not a Pallas kernel: the reference decodes in jnp
     "wkv6_decode": ("src/repro_torch/kernels/csrc/wkv6_decode.cu",
                     "src/repro/kernels/chunked.py:88"),
+    # none: XLA fuses the reference's elementwise passes itself
+    "add_rms_norm": ("src/repro_torch/kernels/csrc/fused_decode.cu",
+                     "src/repro/models/layers.py::rms_norm"),
+    "rope_kv_write": ("src/repro_torch/kernels/csrc/fused_decode.cu",
+                      "src/repro/models/layers.py::rotate"),
+    "silu_mul": ("src/repro_torch/kernels/csrc/fused_decode.cu",
+                 "src/repro/models/layers.py::swiglu"),
 }
+FUSED = ("add_rms_norm", "rope_kv_write", "silu_mul")
 # the kernels each path must launch
-PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention"),
+# (DecoderLM's decode steps with per-row lengths on one device launch the
+# fused passes; the MoE's MLP is not silu_mul's)
+PATH_KERNELS = {"smollm-360m": ("decode_attention", "flash_attention",
+                                *FUSED),
                 "rwkv6-7b": ("wkv6", "wkv6_decode"),
                 "zamba2-2.7b": ("decode_attention", "flash_attention", "ssd"),
                 "arctic-480b": ("decode_attention", "flash_attention",
-                                "grouped_matmul", "grouped_swiglu"),
+                                "grouped_matmul", "grouped_swiglu",
+                                *FUSED[:2]),
                 "kimi-k2-1t-a32b": ("decode_attention", "flash_attention",
-                                    "grouped_matmul", "grouped_swiglu"),
-                "qwen2-vl-72b": ("decode_attention", "flash_attention"),
+                                    "grouped_matmul", "grouped_swiglu",
+                                    *FUSED[:2]),
+                "qwen2-vl-72b": ("decode_attention", "flash_attention",
+                                 *FUSED),
                 # the parent's in-process replicas that check the children
-                "smollm-360m/container": ("decode_attention",),
+                "smollm-360m/container": ("decode_attention", *FUSED),
                 "whisper-small": ("decode_attention", "flash_attention"),
                 # training runs the plain forms: these must launch nothing
                 "train/smollm-360m": (),
                 "train/whisper-small": (),
-                "launch/serve": ("decode_attention",),
-                "churn-live/smollm-360m": ("decode_attention",),
+                "launch/serve": ("decode_attention", *FUSED),
+                "churn-live/smollm-360m": ("decode_attention", *FUSED),
                 # four ranks on cuda:0 over gloo; the counts are the ranks'
                 "mesh/qwen3-32b": ("decode_attention", "flash_attention"),
                 "mesh/smollm-360m": ("decode_attention", "flash_attention"),

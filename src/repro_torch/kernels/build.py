@@ -178,6 +178,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, ci,                  # partial sums, info, max_split
         ci, ci, ci, ci,              # C, K, N, E
         ci, ci, vp]                  # is_bf16, SM count, stream
+    lib.repro_add_rms_norm.restype = ci
+    lib.repro_add_rms_norm.argtypes = [
+        vp, vp, vp, vp, vp,          # x, delta, weight, x_out, h_out
+        ci, ci, cf,                  # rows, d, eps
+        ci, vp]                      # is_bf16, stream
+    lib.repro_rope_kv_write.restype = ci
+    lib.repro_rope_kv_write.argtypes = [
+        vp, vp, vp, vp, vp,          # q, k, v, cos, sin
+        vp, vp, vp, vp,              # k_cache, v_cache, lens, q_out
+        ci, ci, ci, ci, ci,          # B, Hq, Hkv, D, Smax
+        ci, vp]                      # is_bf16, stream
+    lib.repro_silu_mul.restype = ci
+    lib.repro_silu_mul.argtypes = [
+        vp, vp, vp, cl,              # g, u, out, n
+        ci, vp]                      # is_bf16, stream
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     lib.repro_cuda_error_string.argtypes = [ci]
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
+from repro_torch.kernels import fused_decode as _fused
 from repro_torch.kernels import grouped_gemm as _gmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_chunk as _k3
@@ -27,6 +28,9 @@ from repro_torch.kernels import ssd_chunk as _k4
 from repro_torch.kernels import wkv6_decode as _k3d
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.fused_decode import (add_rms_norm_plain,
+                                              rope_kv_write_plain,
+                                              silu_mul_plain)
 from repro_torch.kernels.grouped_gemm import (grouped_matmul_plain,
                                               grouped_swiglu_plain)
 from repro_torch.kernels.rwkv6_chunk import wkv6_plain
@@ -40,13 +44,19 @@ _wkv6_decode_kernel = _k3d.wkv6_decode
 _ssd_kernel = _k4.ssd
 _grouped_kernel = _gmm.grouped_matmul
 _swiglu_kernel = _gmm.grouped_swiglu
+_add_rms_norm_kernel = _fused.add_rms_norm
+_rope_kv_write_kernel = _fused.rope_kv_write
+_silu_mul_kernel = _fused.silu_mul
 _KERNELS = {"decode_attention": _decode_kernel,
             "flash_attention": _flash_kernel,
             "wkv6": _wkv6_kernel,
             "ssd": _ssd_kernel,
             "grouped_matmul": _grouped_kernel,
             "grouped_swiglu": _swiglu_kernel,
-            "wkv6_decode": _wkv6_decode_kernel}
+            "wkv6_decode": _wkv6_decode_kernel,
+            "add_rms_norm": _add_rms_norm_kernel,
+            "rope_kv_write": _rope_kv_write_kernel,
+            "silu_mul": _silu_mul_kernel}
 
 
 def flash_attention(q, k, v, causal=True, q_chunk=512, kv_chunk=1024,
@@ -140,6 +150,42 @@ def grouped_swiglu(x, w_gate, w_up, group_sizes, impl="kernel"):
         g = ref.grouped_matmul_ref(x, w_gate, group_sizes)
         u = ref.grouped_matmul_ref(x, w_up, group_sizes)
         return (F.silu(g.float()) * u.float()).to(x.dtype)
+    raise ValueError(impl)
+
+
+# The fused passes of DecoderLM's decode step: their plain forms are the
+# composition they replace, so "plain" and "reference" are one form.
+
+def add_rms_norm(x, delta, weight, eps=1e-6, impl="kernel"):
+    """``(x + delta, rms_norm(x + delta, weight, eps))`` (``delta`` None:
+    ``(x, rms_norm(x, weight, eps))``)."""
+    if impl == "kernel":
+        return _add_rms_norm_kernel(x, delta, weight, eps)
+    if impl in ("plain", "reference"):
+        return add_rms_norm_plain(x, delta, weight, eps)
+    raise ValueError(impl)
+
+
+def rope_kv_write(q, k, v, cos, sin, k_cache, v_cache, cache_len,
+                  impl="kernel"):
+    """q (B,1,Hq,D) and k (B,1,Hkv,D) rotated by the (B,1,1,D/2) tables,
+    the rotated k and v written into the layer's caches (B,Smax,Hkv,D) at
+    each row's ``cache_len`` (B,) -> the rotated q."""
+    if impl == "kernel":
+        return _rope_kv_write_kernel(q, k, v, cos, sin, k_cache, v_cache,
+                                     cache_len)
+    if impl in ("plain", "reference"):
+        return rope_kv_write_plain(q, k, v, cos, sin, k_cache, v_cache,
+                                   cache_len)
+    raise ValueError(impl)
+
+
+def silu_mul(g, u, impl="kernel"):
+    """``F.silu(g) * u``, each rounded to g's dtype."""
+    if impl == "kernel":
+        return _silu_mul_kernel(g, u)
+    if impl in ("plain", "reference"):
+        return silu_mul_plain(g, u)
     raise ValueError(impl)
 
 

@@ -21,6 +21,13 @@ with PyTorch's idiom:
     lengths, ``index_copy_`` for a scalar length) where the reference
     returns a new array; ``decode_step`` still returns ``(logits, cache)``
     and the returned cache is the one passed in;
+  * on one device with per-slot lengths and RMSNorm, ``decode_step`` takes
+    the fused route (``_use_fused_decode``, ``_fused_stack``): the same
+    arithmetic with each residual add fused into the norm after it, the
+    rotation into the KV write and ``silu(g) * u`` into one pass
+    (``kernels/fused_decode.py``), which on CUDA tensors are three
+    hand-written kernels, so a captured step holds ~13 graph nodes a layer
+    instead of ~49;
   * MoE layers (``cfg.moe``) run the single-device ``models/moe.py`` path
     in place of the dense MLP; the vlm family rotates by M-RoPE with the
     text-only position stream ``(pos, pos, pos)``, as the reference does
@@ -323,6 +330,20 @@ class DecoderLM(nn.Module):
             return L.rms_norm(x, weight)
         return L.layer_norm(x, weight, torch.zeros_like(weight))
 
+    def _qkv(self, w, h, hq, hkv):
+        """q, k, v (B, S, H, D) of the normed input ``h`` at ``hq`` /
+        ``hkv`` heads, qk-normed where the configuration says."""
+        cfg, m, mesh = self.cfg, self.run.model_axis, self.mesh
+        b, s, _ = h.shape
+        hd = cfg.resolved_head_dim
+        q = torch.matmul(h, w["wq"]).reshape(b, s, hq, hd)
+        k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
+        v = torch.matmul(h, w["wv"]).reshape(b, s, hkv, hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, S.copy_to(w["q_norm"], m, mesh))
+            k = L.rms_norm(k, S.copy_to(w["k_norm"], m, mesh))
+        return q, k, v
+
     def _attn(self, w, x, rope, cache_kv=None, write_at=None, attn_len=None):
         """Returns the attention output. ``rope`` is the (cos, sin) pair of
         this step's positions. With ``cache_kv`` given, this step's K/V are
@@ -338,12 +359,7 @@ class DecoderLM(nn.Module):
         hq, hkv = cfg.n_heads // self.n_model, cfg.n_kv_heads // self.n_model
         hd = cfg.resolved_head_dim
         h = S.copy_to(self._norm(x, w["ln1"]), m, mesh)
-        q = torch.matmul(h, w["wq"]).reshape(b, s, hq, hd)
-        k = torch.matmul(h, w["wk"]).reshape(b, s, hkv, hd)
-        v = torch.matmul(h, w["wv"]).reshape(b, s, hkv, hd)
-        if cfg.qk_norm:
-            q = L.rms_norm(q, S.copy_to(w["q_norm"], m, mesh))
-            k = L.rms_norm(k, S.copy_to(w["k_norm"], m, mesh))
+        q, k, v = self._qkv(w, h, hq, hkv)
         q = L.rotate(q, *rope)
         k = L.rotate(k, *rope)
         if cache_kv is None:
@@ -362,10 +378,13 @@ class DecoderLM(nn.Module):
         return S.psum_matmul(o.reshape(b, s, hq * hd), w["wo"], m, mesh)
 
     def _mlp(self, w, x):
+        return self._ffn(w, self._norm(x, w["ln2"]))
+
+    def _ffn(self, w, h):
         """The MoE, or the dense MLP split by columns and rows, then
         ``psum`` on a mesh (with one rank of the model axis ``copy_to`` is
-        the identity and ``psum_matmul`` the plain product)."""
-        h = self._norm(x, w["ln2"])
+        the identity and ``psum_matmul`` the plain product), of the normed
+        input ``h``."""
         if self.cfg.moe is not None:
             return moe_ffn(self.cfg, self.run, w, h, mesh=self.mesh)
         m = self.run.model_axis
@@ -376,15 +395,18 @@ class DecoderLM(nn.Module):
         return L.gelu_mlp(hm, w["w_up"], w["b_up"], w["w_down"], w["b_down"],
                           down)
 
-    def _stack(self, x, pos, cache=None, cache_len=None):
-        # the rotary tables depend on the positions only: once per step, not
-        # once per layer and tensor as the reference's scan body does
+    def _rope(self, pos):
+        """The (cos, sin) tables of ``pos``. They depend on the positions
+        only: once per step, not once per layer and tensor as the
+        reference's scan body does."""
         cfg = self.cfg
         if cfg.mrope_sections is not None:
-            rope = L.mrope_tables(pos, cfg.resolved_head_dim,
+            return L.mrope_tables(pos, cfg.resolved_head_dim,
                                   cfg.mrope_sections, cfg.rope_theta)
-        else:
-            rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        return L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def _stack(self, x, pos, cache=None, cache_len=None):
+        rope = self._rope(pos)
         write_at = attn_len = None
         if cache is not None:
             # new K/V go to position cache_len, attention sees cache_len + 1
@@ -415,9 +437,12 @@ class DecoderLM(nn.Module):
                               self.mesh)
 
     def _logits(self, x):
-        x = self._norm(x, self.final_norm)
+        return self._head(self._norm(x, self.final_norm))
+
+    def _head(self, h):
+        """Logits of the final norm's output ``h``."""
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return S.vocab_logits(x, head, self.run.model_axis, self.mesh,
+        return S.vocab_logits(h, head, self.run.model_axis, self.mesh,
                               self.cfg.vocab)
 
     # ------------------------------------------------------------- on a mesh
@@ -500,6 +525,50 @@ class DecoderLM(nn.Module):
         return self.run.sharded_decode and self.n_model > 1 \
             and not self._kv_sharded
 
+    # ------------------------------------------------------- fused decode
+    def _use_fused_decode(self, cache_len) -> bool:
+        """The decode step's fused route (``_fused_stack``): per-slot
+        ``(B,)`` lengths, one device, RMSNorm. Everything else (a scalar
+        length, a mesh, layer norm) takes ``_stack``."""
+        return cache_len.ndim == 1 and self.mesh is None \
+            and self.cfg.norm == "rmsnorm"
+
+    def _fused_stack(self, x, pos, cache, cache_len):
+        """``_stack``'s decode layers and ``_logits``'s final norm with the
+        non-product passes fused (``kernels/fused_decode.py``): each
+        residual add goes into the norm after it (``add_rms_norm``, the
+        last into ``final_norm``), the rotation into the KV write
+        (``rope_kv_write``), the dense MLP's ``silu(g) * u`` into one pass
+        (``silu_mul``); the products stay on ``torch.matmul``, attention
+        on K1, the MoE on ``moe_ffn``. Returns the final norm's output.
+        Every pass rounds where the unfused one does; on CPU tensors each
+        is the unfused composition, so the logits and caches are bit for
+        bit ``_stack``'s."""
+        cfg, impl = self.cfg, self.run.attn_impl
+        rope = self._rope(pos)
+        attn_len = (cache_len + 1).to(torch.int32)
+        b, s, _ = x.shape
+        hq, hd = cfg.n_heads, cfg.resolved_head_dim
+        delta = None
+        for i in range(cfg.n_layers):
+            w = {k: p[i] for k, p in self.layers.items()}
+            ck, cv = cache["k"][i], cache["v"][i]
+            x, h = ops.add_rms_norm(x, delta, w["ln1"], impl=impl)
+            q, k, v = self._qkv(w, h, hq, cfg.n_kv_heads)
+            q = ops.rope_kv_write(q, k, v, *rope, ck, cv, cache_len,
+                                  impl=impl)
+            o = ops.decode_attention(q, ck, cv, attn_len, impl=impl)
+            x, h = ops.add_rms_norm(
+                x, torch.matmul(o.reshape(b, s, hq * hd), w["wo"]),
+                w["ln2"], impl=impl)
+            if cfg.moe is None and cfg.mlp == "swiglu":
+                delta = torch.matmul(ops.silu_mul(
+                    torch.matmul(h, w["w_gate"]), torch.matmul(h, w["w_up"]),
+                    impl=impl), w["w_down"])
+            else:
+                delta = self._ffn(w, h)
+        return ops.add_rms_norm(x, delta, self.final_norm, impl=impl)[1]
+
     # ------------------------------------------------------------------ steps
     def forward(self, batch) -> torch.Tensor:
         """Prefill forward: batch = {tokens (B,S)} -> logits (B, S, V)."""
@@ -521,5 +590,8 @@ class DecoderLM(nn.Module):
         cache_len = cache_len.long()
         x = self._embed(tokens)
         pos = self._positions(tokens, offset=cache_len)
+        if self._use_fused_decode(cache_len):
+            h = self._fused_stack(x, pos, cache, cache_len)
+            return self._head(h)[:, -1], cache
         x = self._stack(x, pos, cache=cache, cache_len=cache_len)
         return self._logits(x)[:, -1], cache

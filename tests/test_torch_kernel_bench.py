@@ -131,7 +131,8 @@ def test_cuda_leg_times_chip_smokes_main_shapes(monkeypatch):
     for fn in ("check_decode", "check_decode_graph", "check_flash",
                "check_wkv6", "check_ssd", "check_recurrence_graph",
                "check_decode_lse", "check_grouped", "check_wkv6_decode",
-               "check_wkv6_decode_graph"):
+               "check_wkv6_decode_graph", "check_add_rms_norm",
+               "check_rope_kv_write", "check_silu_mul"):
         monkeypatch.setattr(smoke, fn, spy)
     monkeypatch.setattr(smoke, "time_designs", lambda *a, **kw: {})
     monkeypatch.setattr(smoke, "emit", lambda *a, **kw: None)

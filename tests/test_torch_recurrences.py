@@ -354,7 +354,8 @@ def test_ops_dispatch_recurrences_on_the_cpu():
     assert ops.launch_counts() == before
     assert set(before) == {"decode_attention", "flash_attention", "wkv6",
                            "ssd", "grouped_matmul", "grouped_swiglu",
-                           "wkv6_decode"}
+                           "wkv6_decode", "add_rms_norm", "rope_kv_write",
+                           "silu_mul"}
 
 
 # -- attention at head_dim 80 (zamba2-2.7b's shared block) --------------------
